@@ -21,7 +21,24 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    256, float32 and bf16 trunk) and each kernel beside its bound and its
    plain version (device time from torch.profiler, per-call time from
    CUDA events);
-5. print the ``kernels`` line, the card's name and power limit, and last
+5. hold the four InstanceNorm kernels (IN + LeakyReLU and IN + residual,
+   forward and backward) against their plain versions on the card at the
+   training path's shapes (32 and 64 x 256 x 32 x 32), a ragged and a
+   128 x 128 shape, float32 and bfloat16, slope 0.01 and None;
+6. train at the widths of ``exps/nnyu.yaml`` (seeded random weights,
+   seeded crops and poses): ``vae_update`` (batch 64), three
+   ``pretrain_update`` (batch 32), ``post_update`` mode 3 and one
+   ``pretrain_update`` with the fused IN + residual tail, with every norm
+   kernel's launch count set to 0 just before and read just after; each
+   must have launched, the IN + LeakyReLU counts as the generator's
+   residual blocks give them.  Then one ``pretrain_update`` on the kernel
+   route against the same step on the plain route, and one tiny-width
+   step on the card against the CPU (TF32 off);
+7. time each norm kernel beside its bound, its plain version and
+   ``F.instance_norm``, and ``pretrain_update`` (batch 8 and 32) and
+   ``vae_update``: ms per step, device time, idle share, top kernels,
+   peak memory;
+8. print the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -279,15 +296,14 @@ def phase_warp(torch, dev, cam):
     return rows, max_err
 
 
-def seeded_state_dict(hyp, seed):
+def seeded_state_dict(hyp, seed, nets=("dis", "vae")):
     import torch
     from torch import nn
 
     from lsps_tpu_torch.models import build_model
     from lsps_tpu_torch.ops.layers import reset_parameters
 
-    nets = nn.ModuleDict({"dis": build_model(hyp["dis"]),
-                          "vae": build_model(hyp["vae"])})
+    nets = nn.ModuleDict({k: build_model(hyp[k]) for k in nets})
     reset_parameters(nets, torch.Generator().manual_seed(seed))
     return nets.state_dict()
 
@@ -435,6 +451,430 @@ def phase_timing(torch, dev, hyp, sd):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the norm kernels and the trainer
+# ---------------------------------------------------------------------------
+
+NORM_SHAPES = ((32, 256, 32, 32), (64, 256, 32, 32), (3, 5, 7, 9),
+               (2, 64, 128, 128))
+NORM_TIMING_SHAPES = ((32, 256, 32, 32), (64, 256, 32, 32))
+# float32 outputs: the kernel sums a plane in another order than torch
+# does, which moves the last bits of the moments (~1e-6 at unit scale)
+NORM_TOL = 1e-5
+# bfloat16 outputs (y, dx) are rounded from float32 values that may differ
+# in their last bit: one bfloat16 ulp, 2^-7 relative
+NORM_BF16_RTOL = 2.0 ** -7
+NORM_FLOPS_PER_VALUE = {"in_act_forward": 8, "in_act_backward": 9,
+                        "in_res_forward": 8, "in_res_backward": 10}
+NORM_REPLACES = {
+    "in_act_forward": "lsps_tpu/ops/pallas/norm_act.py:92",
+    "in_act_backward": "lsps_tpu/ops/pallas/norm_act.py:124",
+    "in_res_forward": "lsps_tpu/ops/pallas/norm_act.py:275",
+    "in_res_backward": "lsps_tpu/ops/pallas/norm_act.py:307",
+}
+NORM_SYMBOL = {"in_act_forward": "in_act_fwd_kernel",
+               "in_act_backward": "in_act_bwd_kernel",
+               "in_res_forward": "in_res_fwd_kernel",
+               "in_res_backward": "in_res_bwd_kernel"}
+TRAIN_BATCHES = (8, 32)
+# kernel route vs plain route (and card vs CPU) of one pretrain step, TF32
+# off.  Losses: 1e-4 relative, since the IN moments differ in their last
+# bits and the difference passes through some 40 layers.  Parameters: a
+# first Adam step moves each element by lr * g / (|g| + eps), about
+# +-lr, so an element whose gradient is within that noise of zero may
+# move the other way.  Every element must agree within 2 * lr, and all
+# but STEP_DISAGREE_SHARE of them (the conv biases that feed an
+# InstanceNorm left out: their gradients are zero up to noise) within
+# 1e-3 * lr + 1e-3 * |update|.
+STEP_LOSS_RTOL = 1e-4
+STEP_DISAGREE_SHARE = 1e-3
+
+
+def norm_data(torch, dev, shape, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+    res = torch.randn(shape, generator=gen, device=dev)
+    g = torch.randn(shape, generator=gen, device=dev)
+    return x.to(dtype), res.to(dtype), g.to(dtype)
+
+
+def norm_pairs(N, x, res, g, slope):
+    """(kernel name, kernel results, plain results) for the four kernels
+    on one input; each backward is given the plain forward's moments."""
+    ref_f = N.in_act_forward_reference(x, slope)
+    ref_r = N.in_res_forward_reference(x, res)
+    return [
+        ("in_act_forward", N.in_act_forward(x, slope), ref_f),
+        ("in_act_backward",
+         (N.in_act_backward(g, ref_f[1], ref_f[2], slope),),
+         (N.in_act_backward_reference(g, ref_f[1], ref_f[2], slope),)),
+        ("in_res_forward", N.in_res_forward(x, res), ref_r),
+        ("in_res_backward", (N.in_res_backward(g, x, ref_r[1], ref_r[2]),),
+         (N.in_res_backward_reference(g, x, ref_r[1], ref_r[2]),)),
+    ]
+
+
+def phase_norm(torch, dev):
+    """The four norm kernels against their plain versions on the card;
+    returns the largest |kernel - plain| of each, for float32 and for
+    bfloat16 inputs."""
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+
+    errs = {dt: {name: 0.0 for name in N.KERNELS}
+            for dt in (torch.float32, torch.bfloat16)}
+    for i, shape in enumerate(NORM_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, res, g = norm_data(torch, dev, shape, dtype, seed=i)
+            for slope in (N.SLOPE, None):
+                for name, got, want in norm_pairs(N, x, res, g, slope):
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        if a.dtype != b.dtype or a.shape != b.shape:
+                            raise AssertionError(
+                                f"{name} {shape} {dtype}: kernel gives "
+                                f"{a.dtype} {tuple(a.shape)}, plain "
+                                f"{b.dtype} {tuple(b.shape)}")
+                        if not bool(a.isfinite().all()):
+                            raise AssertionError(f"{name} {shape} {dtype}"
+                                                 f": non-finite output")
+                        rtol = (NORM_BF16_RTOL if a.dtype == torch.bfloat16
+                                else NORM_TOL)
+                        a, b = a.float(), b.float()
+                        diff = (a - b).abs()
+                        errs[dtype][name] = max(errs[dtype][name],
+                                                float(diff.max()))
+                        if bool((diff > NORM_TOL + rtol * b.abs()).any()):
+                            raise AssertionError(
+                                f"{name} {shape} {dtype} slope={slope}: "
+                                f"kernel != plain, max |diff| "
+                                f"{float(diff.max())}")
+            log(f"norm kernels {shape} {str(dtype)[6:]}: match the plain "
+                f"versions (slope 0.01 and None)")
+    return errs
+
+
+def norm_bytes(name, shape, esize):
+    """Bytes a norm kernel must move: each input read once, each output
+    written once (planes of B*C*H*W values, moments of B*C float32)."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    planes = shape[0] * shape[1]
+    return {
+        "in_act_forward": n * esize * 2 + n * 4 + planes * 4,
+        "in_act_backward": n * esize * 2 + n * 4 + planes * 4,
+        "in_res_forward": n * esize * 3 + planes * 8,
+        "in_res_backward": n * esize * 3 + planes * 8,
+    }[name]
+
+
+def phase_norm_timing(torch, dev):
+    """Each norm kernel at the training path's shapes: device ms from
+    torch.profiler, per-call ms from CUDA events, beside the plain version,
+    the bound, and F.instance_norm for the one function a single PyTorch
+    call computes (the slope-None forward)."""
+    import torch.nn.functional as F
+
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+
+    rows = []
+    for shape in NORM_TIMING_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, res, g = norm_data(torch, dev, shape, dtype, seed=7)
+            _, xhat, rstd = N.in_act_forward_reference(x, N.SLOPE)
+            _, mean, rstd2 = N.in_res_forward_reference(x, res)
+            calls = {
+                "in_act_forward": (
+                    functools.partial(N.in_act_forward, x, N.SLOPE),
+                    functools.partial(N.in_act_forward_reference, x,
+                                      N.SLOPE)),
+                "in_act_backward": (
+                    functools.partial(N.in_act_backward, g, xhat, rstd,
+                                      N.SLOPE),
+                    functools.partial(N.in_act_backward_reference, g, xhat,
+                                      rstd, N.SLOPE)),
+                "in_res_forward": (
+                    functools.partial(N.in_res_forward, x, res),
+                    functools.partial(N.in_res_forward_reference, x, res)),
+                "in_res_backward": (
+                    functools.partial(N.in_res_backward, g, x, mean, rstd2),
+                    functools.partial(N.in_res_backward_reference, g, x,
+                                      mean, rstd2)),
+            }
+            for name, (kernel, plain) in calls.items():
+                call_ms = cuda_ms(torch, kernel, 100)
+                plain_call_ms = cuda_ms(torch, plain, 50)
+                by_name, _, _ = profile_kernels(torch, kernel)
+                dev_ms = sum(ms for k, (ms, _) in by_name.items()
+                             if NORM_SYMBOL[name] in k)
+                _, plain_dev_ms, _ = profile_kernels(torch, plain)
+                nbytes = norm_bytes(name, shape, x.element_size())
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = (NORM_FLOPS_PER_VALUE[name] * x.numel()
+                          / F32_FLOPS_PER_S * 1e3)
+                row = {"kernel": name, "shape": list(shape),
+                       "dtype": str(dtype)[6:], "ms": dev_ms or call_ms,
+                       "call_ms": call_ms,
+                       "plain_ms": plain_dev_ms or plain_call_ms,
+                       "plain_call_ms": plain_call_ms,
+                       "timed_by": "profiler" if dev_ms and plain_dev_ms
+                       else "cuda events",
+                       "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms
+                       else "operations", "library_ms": None}
+                if name == "in_act_forward":
+                    ident = functools.partial(N.in_act_forward, x, None)
+                    lib = functools.partial(F.instance_norm, x, eps=N.EPS)
+                    by_name, _, _ = profile_kernels(torch, ident)
+                    row["ms_slope_none"] = sum(
+                        ms for k, (ms, _) in by_name.items()
+                        if NORM_SYMBOL[name] in k) or cuda_ms(torch, ident,
+                                                              100)
+                    _, lib_dev_ms, _ = profile_kernels(torch, lib)
+                    row["library_ms"] = lib_dev_ms or cuda_ms(torch, lib,
+                                                              100)
+                    row["library_call_ms"] = cuda_ms(torch, lib, 100)
+                rows.append(row)
+                log(f"{name} {shape} {row['dtype']}: {row['ms']:.4f} ms "
+                    f"device, bound {row['bound_ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms")
+    return rows
+
+
+def train_batch(torch, dev, b, seed, reg_dim):
+    """Crops in [-1, 1] and pose labels of both domains, from a numpy
+    seed, on the card."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        out.append(torch.from_numpy(rs.uniform(-1, 1, (b, 128, 128, 1))
+                                    .astype(np.float32)).to(dev))
+        out.append(torch.from_numpy(rs.uniform(-0.3, 0.3, (b, reg_dim))
+                                    .astype(np.float32)).to(dev))
+    return out
+
+
+def in_act_counts(gcfg):
+    """IN+LeakyReLU launches of one joint generator pass and of one
+    one-way pass (a2b, b2a): one per LeakyINSResBlock run."""
+    one_way = (gcfg["n_enc_res_blk"] + gcfg["n_enc_shared_blk"]
+               + gcfg["n_gen_shared_blk"] + gcfg["n_gen_res_blk"])
+    joint = one_way + gcfg["n_enc_res_blk"] + gcfg["n_gen_res_blk"]
+    return joint, one_way
+
+
+def pretrain_noise(torch, dev, b, ch, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(n):
+        return torch.randn((n, 32, 32, ch), generator=gen, device=dev)
+
+    return {"dis": {"gen": draw(2 * b)},
+            "gen": {"gen": draw(2 * b), "a2b": draw(b), "b2a": draw(b)}}
+
+
+def in_fed_biases(trainer):
+    """Names of the conv biases that feed an InstanceNorm: their gradients
+    are zero up to noise."""
+    from lsps_tpu_torch.ops import layers as L
+
+    names = set()
+    for net_name, net in trainer.nets.items():
+        for mod_name, mod in net.named_modules():
+            if isinstance(mod, L.LeakyINSResBlock):
+                names |= {f"{net_name}.{mod_name}.0.bias",
+                          f"{net_name}.{mod_name}.3.bias"}
+            elif isinstance(mod, L.LeakyINSResNeXtBlock):
+                names |= {f"{net_name}.{mod_name}.{i}.bias"
+                          for i in (0, 3, 6)}
+    return names
+
+
+def compare_steps(torch, start, a, b, ma, mb, lr, what):
+    """Losses and parameter updates of two trainers that took the same
+    step from the same start; see STEP_LOSS_RTOL.  Returns (worst loss
+    rel err, share of disagreeing elements)."""
+    worst = 0.0
+    for k, va in ma.items():
+        va, vb = float(va), float(mb[k])
+        if not (np.isfinite(va) and np.isfinite(vb)):
+            raise AssertionError(f"{what}: {k} not finite ({va}, {vb})")
+        rel = abs(va - vb) / max(abs(vb), 1e-12)
+        worst = max(worst, rel)
+        if rel > STEP_LOSS_RTOL:
+            raise AssertionError(f"{what}: {k} {va} vs {vb}")
+    skip = in_fed_biases(a)
+    sa, sb = a.nets.state_dict(), b.nets.state_dict()
+    bad = total = 0
+    for k, p0 in start.items():
+        da = sa[k].float().cpu() - p0.float()
+        db = sb[k].float().cpu() - p0.float()
+        diff = (da - db).abs()
+        if float(diff.max()) > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"{what}: {k} moved {float(diff.max())} "
+                                 f"apart, more than 2 lr")
+        if k not in skip:
+            bad += int((diff > 1e-3 * lr + 1e-3 * db.abs()).sum())
+            total += diff.numel()
+    share = bad / max(total, 1)
+    if share > STEP_DISAGREE_SHARE:
+        raise AssertionError(f"{what}: {bad} of {total} parameter elements "
+                             f"disagree")
+    return worst, share
+
+
+def phase_train(torch, dev, hyp, sd):
+    """The training path at nnyu widths: vae_update, three
+    pretrain_updates, a post_update (mode 3) and a pretrain_update with
+    the fused IN + residual tail, with every norm kernel's launch count
+    set to 0 just before and read just after; then one pretrain step on
+    the kernel route against the plain route (TF32 off)."""
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    b, reg = hyp["batch_size"], hyp["vae"]["input_dim"]
+    batch = train_batch(torch, dev, b, seed=11, reg_dim=reg)
+    poses = torch.from_numpy(np.random.RandomState(12).uniform(
+        -0.3, 0.3, (hyp["batch_size_pose"], reg)).astype(np.float32)).to(dev)
+    trainer = LSPSTrainer(hyp, sd, device=dev, seed=0)
+    for k in N.KERNELS.values():
+        k.launches = 0
+    mets = [trainer.vae_update(poses)[0]]
+    mets += [trainer.pretrain_update(*batch, with_viz=False)[0]
+             for _ in range(3)]
+    mets.append(trainer.post_update(*batch, mode=3, with_viz=False)[0])
+    N.set_in_res_fused(True)
+    try:
+        mets.append(trainer.pretrain_update(*batch, with_viz=False)[0])
+    finally:
+        N.set_in_res_fused(None)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in N.KERNELS.items()}
+    log(f"train path launches: {launches}")
+    joint, one_way = in_act_counts(hyp["gen"])
+    per_step_fwd, per_step_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
+    want = {"in_act_forward": 4 * per_step_fwd + joint,
+            "in_act_backward": 4 * per_step_bwd,
+            "in_res_forward": per_step_fwd, "in_res_backward": per_step_bwd}
+    if launches != want:
+        raise AssertionError(f"train path launches {launches}, the code "
+                             f"gives {want}")
+    for m in mets:
+        for k, v in m.items():
+            if not np.isfinite(float(v)):
+                raise AssertionError(f"train: {k} = {float(v)}")
+    log(f"train: vae_update, 3 pretrain_update, post_update(3), fused "
+        f"pretrain_update: losses finite; IN+LeakyReLU {per_step_fwd} fwd /"
+        f" {per_step_bwd} bwd per pretrain_update, as counted from the code")
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        noise = pretrain_noise(torch, dev, b, trainer.gen.latent_ch, seed=13)
+        kern = LSPSTrainer(hyp, sd, device=dev)
+        plain = LSPSTrainer(hyp, sd, device=dev)
+        mk, _ = kern.pretrain_update(*batch, noise=noise, with_viz=False)
+        torch.cuda.synchronize()
+        before = {name: k.launches for name, k in N.KERNELS.items()}
+        with N.plain_versions():
+            mp, _ = plain.pretrain_update(*batch, noise=noise,
+                                          with_viz=False)
+            torch.cuda.synchronize()
+        if {name: k.launches for name, k in N.KERNELS.items()} != before:
+            raise AssertionError("a norm kernel launched on the plain route")
+        start = {k: v.float() for k, v in sd.items()}
+        loss_err, share = compare_steps(torch, start, kern, plain, mk, mp,
+                                        hyp["lr"], "kernel vs plain route")
+        log(f"pretrain_update B={b}: kernel route vs plain route: losses "
+            f"<= {loss_err:.3g} relative (tol {STEP_LOSS_RTOL}), "
+            f"{share:.3g} of parameter elements apart (tol "
+            f"{STEP_DISAGREE_SHARE})")
+        del kern, plain
+        cpu_err = phase_train_cpu(torch, dev, hyp)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return launches, trainer, {"route_loss_rel": loss_err,
+                               "route_param_share": share,
+                               "cpu_loss_rel": cpu_err[0],
+                               "cpu_param_share": cpu_err[1]}
+
+
+def phase_train_cpu(torch, dev, hyp):
+    """One tiny-width pretrain step on the card against the same step on
+    the CPU (the path the tests hold against the JAX package)."""
+    import copy
+
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    tiny = copy.deepcopy(hyp)
+    tiny["gen"]["ch"] = tiny["dis"]["ch"] = 4
+    tiny["map"]["output_ch"] = 16
+    sd = seeded_state_dict(tiny, seed=3, nets=("dis", "gen", "vae", "map"))
+    b = 2
+    batch = train_batch(torch, "cpu", b, seed=14, reg_dim=tiny["vae"][
+        "input_dim"])
+    noise = pretrain_noise(torch, "cpu", b, 16, seed=15)
+    card = LSPSTrainer(tiny, sd, device=dev)
+    cpu = LSPSTrainer(tiny, sd, device="cpu")
+    to_dev = {k: {n: t.to(dev) for n, t in d.items()}
+              for k, d in noise.items()}
+    mg, _ = card.pretrain_update(*(t.to(dev) for t in batch), noise=to_dev,
+                                 with_viz=False)
+    mc, _ = cpu.pretrain_update(*batch, noise=noise, with_viz=False)
+    torch.cuda.synchronize()
+    err = compare_steps(torch, sd, card, cpu, mg, mc, tiny["lr"],
+                        "tiny width card vs CPU")
+    log(f"pretrain_update tiny width: card vs CPU losses <= {err[0]:.3g} "
+        f"relative, {err[1]:.3g} of parameter elements apart")
+    return err
+
+
+def phase_train_timing(torch, dev, hyp, trainer):
+    """ms per update (host clock around calls ending in a synchronize),
+    device time, idle share and top kernels (torch.profiler), peak memory
+    per step; PyTorch's default TF32 settings."""
+    rows = []
+    reg = hyp["vae"]["input_dim"]
+    for b in TRAIN_BATCHES:
+        batch = train_batch(torch, dev, b, seed=20 + b, reg_dim=reg)
+
+        def step():
+            return trainer.pretrain_update(*batch, with_viz=False)
+
+        ms = host_ms(torch, step, 10, warmup=2)
+        by_name, dev_ms, wall = profile_kernels(torch, step, iters=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        rows.append({"update": "pretrain_update", "batch": b, "ms": ms,
+                     "profiled_wall_ms": wall, "device_ms": dev_ms,
+                     "device_idle_share": max(0.0, 1 - dev_ms / wall),
+                     "kernels_per_step": sum(n for _, n in
+                                             by_name.values()),
+                     "norm_kernel_ms": sum(
+                         ms_ for k, (ms_, _) in by_name.items()
+                         if any(s in k for s in NORM_SYMBOL.values())),
+                     "peak_bytes_over_state": peak - base,
+                     "peak_bytes": peak,
+                     "top_kernels_ms": [[k[:70], round(v[0], 5)]
+                                        for k, v in top]})
+        log(f"pretrain_update B={b}: {ms:.2f} ms/step, device "
+            f"{dev_ms:.2f} ms, idle {rows[-1]['device_idle_share']:.2f}, "
+            f"peak {peak / 2**30:.2f} GiB")
+    poses = torch.from_numpy(np.random.RandomState(30).uniform(
+        -0.3, 0.3, (hyp["batch_size_pose"], reg)).astype(np.float32)).to(dev)
+    vae_ms = host_ms(torch, lambda: trainer.vae_update(poses), 50)
+    rows.append({"update": "vae_update", "batch": hyp["batch_size_pose"],
+                 "ms": vae_ms})
+    log(f"vae_update B={hyp['batch_size_pose']}: {vae_ms:.3f} ms/step")
+    return rows
+
+
 def gpu_name_and_power():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -466,14 +906,30 @@ def main() -> int:
     sd = seeded_state_dict(hyp, seed=0)
     launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
     timing = phase_timing(torch, dev, hyp, sd)
+    norm_errs = phase_norm(torch, dev)
+    log("norm max |kernel - plain|: float32 "
+        f"{norm_errs[torch.float32]}, bfloat16 {norm_errs[torch.bfloat16]}")
+    train_sd = seeded_state_dict(hyp, seed=1,
+                                 nets=("dis", "gen", "vae", "map"))
+    train_launches, trainer, train_checks = phase_train(torch, dev, hyp,
+                                                        train_sd)
+    norm_rows = phase_norm_timing(torch, dev)
+    train_rows = phase_train_timing(torch, dev, hyp, trainer)
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
+    log("norm timing " + json.dumps(norm_rows))
+    log("train timing " + json.dumps(train_rows))
+    log("train checks " + json.dumps(train_checks))
     main_row = next(r for r in warp_rows
                     if r["batch"] == 32 and r["frames"] == "f32")
     log("library_ms: null for warp_normalize: no single PyTorch call "
         "gathers, clamps and normalizes a crop")
-    log(json.dumps({"kernels": [{
+    log("library_ms: F.instance_norm for in_act_forward (timed at slope "
+        "None, the function it computes; ms_slope_none beside it); null "
+        "for in_act_backward, in_res_forward and in_res_backward: no "
+        "single PyTorch call computes them")
+    rows = [{
         "name": "warp_normalize", "route": "cuda",
         "source": "lsps_tpu_torch/csrc/warp.cu",
         "replaces": "lsps_tpu/ops/pallas/warp.py:42",
@@ -484,7 +940,25 @@ def main() -> int:
         "bound_by": main_row["bound_by"], "library_ms": None,
         "timed_by": main_row["timed_by"],
         "at": "batch 32 float32 frames, 128x128 crops",
-    }]}))
+    }]
+    for name, replaces in NORM_REPLACES.items():
+        r = next(r for r in norm_rows if r["kernel"] == name
+                 and r["shape"][0] == hyp["batch_size"]
+                 and r["dtype"] == "float32")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "lsps_tpu_torch/csrc/norm_act.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": norm_errs[torch.float32][name],
+            "max_abs_err_bf16": norm_errs[torch.bfloat16][name],
+            "ms": r["ms"],
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timed_by": r["timed_by"],
+            "at": f"{tuple(r['shape'])} float32 (the batch-"
+                  f"{hyp['batch_size']} training path)",
+        })
+    log(json.dumps({"kernels": rows}))
     log(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

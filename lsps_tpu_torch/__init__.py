@@ -1,9 +1,10 @@
-"""LSPS in PyTorch and CUDA: the depth -> pose serving path for an NVIDIA H100.
+"""LSPS in PyTorch and CUDA for an NVIDIA H100: depth -> pose serving and
+the VAE-GAN training updates.
 
 A second implementation of ``lsps_tpu`` (the JAX reference) that imports
 neither JAX nor ``lsps_tpu``.  Public functions keep the reference's
 layouts: crops ``(B, 128, 128, 1)`` NHWC, frames ``(B, H, W)``, joints
-``(B, J, 3)``.  Every TPU kernel on the ported path is a CUDA kernel
+``(B, J, 3)``.  Every TPU kernel of the reference is a CUDA kernel
 written for ``sm_90a`` (``csrc/``), with a plain PyTorch version beside it
 that runs only for tensors on the CPU.
 

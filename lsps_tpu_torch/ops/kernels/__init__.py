@@ -2,4 +2,4 @@
 built by ``build.py`` on first use, with a Python wrapper and a plain
 PyTorch version in ``<name>.py``."""
 
-SOURCES = ("warp",)
+SOURCES = ("warp", "norm_act")

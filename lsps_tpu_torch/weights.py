@@ -7,6 +7,8 @@ exactly as the JAX package's ``sequential`` lists do.  Per leaf:
 
 * ``w`` 4-D (HWIO conv kernel)  -> OIHW: perm (3, 2, 0, 1)
 * ``w`` 2-D ((in, out) linear)  -> (out, in)
+* ``wt`` 4-D (kh, kw, I, O) transposed-conv kernel -> ConvTranspose2d's
+  (I, O, kh, kw): perm (2, 3, 0, 1)
 * ``b``                         -> as it is
 
 The tree is nested dicts/lists of arrays; anything ``np.asarray`` reads
@@ -36,10 +38,12 @@ def _walk(node: Any, path: List[str], out: Dict[str, torch.Tensor]) -> None:
             a = a.transpose(3, 2, 0, 1)
         elif leaf == "w" and a.ndim == 2:
             a = a.T
+        elif leaf == "wt" and a.ndim == 4:
+            a = a.transpose(2, 3, 0, 1)
         elif leaf != "b":
             raise ValueError(f"no rule for leaf {'/'.join(path)} "
                              f"with shape {a.shape}")
-        name = "weight" if leaf == "w" else "bias"
+        name = "bias" if leaf == "b" else "weight"
         out[".".join(path[:-1] + [name])] = torch.from_numpy(
             np.ascontiguousarray(a))
 

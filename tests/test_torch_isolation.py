@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or ``lsps_tpu``.  Checked in a fresh
 interpreter, since this test process already holds JAX.  Also holds the
-warp wrapper to its contract: CPU tensors run the plain version, a launch
-counter exists and only kernel launches move it, other devices raise.
+kernel wrappers (the warp and the four norm kernels) to their contract:
+CPU tensors run the plain version, a launch counter exists and only kernel
+launches move it, other devices raise.
 """
 
 import subprocess
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from lsps_tpu_torch.ops.kernels import norm_act as N
 from lsps_tpu_torch.ops.kernels import warp as W
 
 torch.set_num_threads(1)
@@ -40,7 +42,7 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     n_modules, bad = res.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 22
     assert bad.strip() == "[]"
 
 
@@ -78,3 +80,54 @@ def test_kernel_source_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast" in f for f in build.NVCC_FLAGS)
     assert build.library_path("warp").parent == ROOT / "build"
+
+
+def _norm_inputs(device="cpu"):
+    rs = np.random.RandomState(1)
+    x, res, g = (torch.from_numpy(rs.randn(2, 3, 5, 4).astype(np.float32))
+                 .to(device) for _ in range(3))
+    stats = torch.ones(2, 3, 1, 1, device=device)
+    return {
+        "in_act_forward": ((x, N.SLOPE), N.in_act_forward_reference),
+        "in_act_backward": ((g, x, stats, N.SLOPE),
+                            N.in_act_backward_reference),
+        "in_res_forward": ((x, res), N.in_res_forward_reference),
+        "in_res_backward": ((g, x, stats, stats),
+                            N.in_res_backward_reference),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(N.KERNELS))
+def test_norm_cpu_tensors_take_the_plain_version(name):
+    args, plain = _norm_inputs()[name]
+    wrapper = N.KERNELS[name]
+    before = wrapper.launches
+    got, want = wrapper(*args), plain(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    with N.plain_versions():
+        wrapper(*args)
+    assert isinstance(wrapper.launches, int)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(N.KERNELS))
+def test_norm_other_devices_raise(name):
+    args, _ = _norm_inputs("meta")[name]
+    with pytest.raises(ValueError, match="meta"):
+        N.KERNELS[name](*args)
+    with N.plain_versions(), pytest.raises(ValueError, match="meta"):
+        N.KERNELS[name](*args)
+
+
+def test_norm_kernel_source_is_built():
+    from lsps_tpu_torch.ops.kernels import SOURCES, build
+
+    assert "norm_act" in SOURCES
+    assert (build.CSRC / "norm_act.cu").is_file()
+    src = (build.CSRC / "norm_act.cu").read_text()
+    for name in ("lsps_in_act_fwd", "lsps_in_act_bwd", "lsps_in_res_fwd",
+                 "lsps_in_res_bwd"):
+        assert f'extern "C" int {name}(' in src
+        assert name in N._SIGNATURES
