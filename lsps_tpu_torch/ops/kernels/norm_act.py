@@ -19,14 +19,11 @@ residual op), xhat/mean/rstd in the moment dtype, dx in g's dtype.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors (``<wrapper>.launches`` counts the launches); any
-other device raises.  ``plain_versions()`` is a scoped switch that makes
-CUDA tensors take the plain versions too, so that a run on the card can be
-compared with the same run through the kernels.
+other device raises.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 from typing import Optional
@@ -39,14 +36,15 @@ SLOPE = 0.01
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_PLAIN_ON_CARD = False
 _IN_RES_FUSED = None  # None = LSPS_FUSED_IN_RES decides (default off)
 
 
-def set_in_res_fused(value) -> None:
-    """True/False force; None = the ``LSPS_FUSED_IN_RES`` default (off)."""
+def set_in_res_fused(value):
+    """True/False force; None = the ``LSPS_FUSED_IN_RES`` default (off).
+    Returns the previous setting, so that a caller can restore it."""
     global _IN_RES_FUSED
-    _IN_RES_FUSED = value
+    prev, _IN_RES_FUSED = _IN_RES_FUSED, value
+    return prev
 
 
 def in_res_fused_enabled() -> bool:
@@ -56,18 +54,6 @@ def in_res_fused_enabled() -> bool:
     if _IN_RES_FUSED is not None:
         return bool(_IN_RES_FUSED)
     return os.environ.get("LSPS_FUSED_IN_RES", "0") == "1"
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Within the block, CUDA tensors take the plain versions and no
-    kernel launches.  For comparing a whole run with its kernel route."""
-    global _PLAIN_ON_CARD
-    prev, _PLAIN_ON_CARD = _PLAIN_ON_CARD, True
-    try:
-        yield
-    finally:
-        _PLAIN_ON_CARD = prev
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +152,7 @@ def _route(x: torch.Tensor, op: str) -> bool:
         return False
     if x.device.type != "cuda":
         raise ValueError(f"no {op} for device {x.device}")
-    return not _PLAIN_ON_CARD
+    return True
 
 
 def _check(op: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:

@@ -161,24 +161,22 @@ class GaussianNoise(nn.Module):
 
 class Dropout(nn.Module):
     """``dropout_layer``: in training keeps each value with probability
-    1 - rate and scales it by 1 / (1 - rate).  ``mask`` is an injected
-    boolean keep-mask of x's shape; else it is drawn from ``generator``."""
+    1 - rate and scales it by 1 / (1 - rate); the keep-mask is drawn from
+    ``generator``."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
+        if generator is None:
+            raise ValueError("Dropout needs a generator in training")
         keep = 1.0 - self.rate
-        if mask is None:
-            if generator is None:
-                raise ValueError("Dropout needs a mask or a generator in "
-                                 "training")
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
