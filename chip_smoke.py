@@ -8,19 +8,29 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
 
 1. build every CUDA kernel of the port from ``lsps_tpu_torch/csrc`` (one
    nvcc per source, all started together) and print the build seconds;
-2. hold each kernel against its plain PyTorch version on the card, bit for
-   bit, at the batch sizes of the serving path (1, 32, 256), for float32
-   and whole-millimetre uint16 frames, edge cases included;
+2. hold both entries of the crop-warp kernel (``crop_normalize``, which
+   computes the crop indices itself, and ``warp_normalize``, which reads
+   them) against their plain PyTorch versions on the card, crops and crop
+   affines bit for bit (NaN-aware: a failed detection gives NaN in M), on
+   the edge frames and a zero-CoM frame and at the batch sizes of the
+   serving path (1, 32, 256), for float32 and whole-millimetre uint16
+   frames; check that ``crop_normalize_batch`` is one kernel launch; time
+   both entries beside their bounds and plain versions (device time from
+   torch.profiler, per-call time from CUDA events); then the same checks
+   over 20000 random CoMs and cubes on frames of distinct depths, and a
+   sweep of the kernel's block shapes at batch 1, 32 and 256;
 3. serve ``PoseEstimator.predict_frames`` and ``predict_raw`` at the widths
    of ``exps/nnyu.yaml`` (seeded random weights) for requests of 1 and 32
    frames, with every kernel's launch count set to 0 just before and read
-   just after; each kernel must have launched.  The joints are held
-   against a plain route on the card (the reference warp + the same
-   modules, TF32 off) and against the estimator on the CPU;
+   just after; ``crop_normalize`` must launch once per call and
+   ``warp_normalize`` not at all.  The joints are held against a plain
+   route on the card (the reference warp + the same modules, TF32 off)
+   and against the estimator on the CPU;
 4. time ``predict_frames`` (ms per call at batch 1, frames/s at 32 and
-   256, float32 and bf16 trunk) and each kernel beside its bound and its
-   plain version (device time from torch.profiler, per-call time from
-   CUDA events);
+   256, float32 and bf16 trunk; kernels per call and the device's idle
+   share), beside the same call on the index route (the crop indices in
+   PyTorch ops and the loaded-index kernel, as before the index math
+   moved into the kernel), in turns;
 5. hold the four InstanceNorm kernels (IN + LeakyReLU and IN + residual,
    forward and backward) against their plain versions on the card at the
    training path's shapes (32 and 64 x 256 x 32 x 32), a ragged and a
@@ -66,7 +76,13 @@ CUBE_MM = 300.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 WARP_FLOPS_PER_PIXEL = 9    # 3 compare-selects, isfinite, sub, div
+WARP_INDEX_FLOPS = 8        # per output row or column: sub, div, add,
+                            # floor and four compares
 WARP_BATCHES = (1, 32, 256)
+RANDOM_COMS = 20000         # as tests/test_torch_warp.py draws them
+RANDOM_CHUNK = 2000
+SWEEP_ROWS = (1, 2, 4, 8, 16)
+SWEEP_THREADS = (128, 256, 512)
 SERVE_BATCHES = (1, 32)
 TIMING_BATCHES = (1, 32, 256)
 JOINTS_PLAIN_MM = 1e-3      # kernel route vs plain route, same modules
@@ -95,8 +111,9 @@ def blob_frames(n, rs):
 
 
 def edge_frames(rs):
-    """Border CoMs, NaN/inf outside the blob, near/far outliers inside."""
-    frames = np.zeros((4, H, W), np.float32)
+    """Border CoMs, NaN/inf outside the blob, near/far outliers inside, and
+    a failed detection (a blob, CoM 0: infinite bounds, NaN in M)."""
+    frames = np.zeros((5, H, W), np.float32)
     frames[0, 100:260, 0:120] = rs.uniform(700, 900, (160, 120))
     frames[1, H - 130:, W - 130:] = rs.uniform(700, 900, (130, 130))
     frames[2, 200:330, 250:380] = rs.uniform(700, 900, (130, 130))
@@ -105,10 +122,12 @@ def edge_frames(rs):
     frames[3, 200:330, 250:380] = rs.uniform(700, 900, (130, 130))
     frames[3, 240:250, 280:290] = 100.0
     frames[3, 260:270, 300:310] = 3000.0
+    frames[4, 200:330, 250:380] = rs.uniform(700, 900, (130, 130))
     coms = np.asarray([[40.0, 180.0, 800.0],
                        [W - 60.0, H - 60.0, 800.0],
                        [315.0, 265.0, 800.0],
-                       [315.0, 265.0, 800.0]], np.float32)
+                       [315.0, 265.0, 800.0],
+                       [0.0, 0.0, 0.0]], np.float32)
     return frames, coms
 
 
@@ -141,7 +160,7 @@ def warp_batch(n, seed):
     fs, cs = [], []
     ef, ec = edge_frames(rs)
     fs.append(ef), cs.append(ec)
-    rest = max(n - 4, 0)
+    rest = max(n - len(ef), 0)
     bf, bc = blob_frames((rest + 1) // 2, rs)
     hf, hc = hand_frames(rest // 2, rs)
     fs += [bf, hf]
@@ -227,77 +246,242 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s with {build.nvcc_path()}")
 
 
-def warp_bytes(frames, iy, ix):
-    """Bytes the warp must move for these inputs: each distinct valid
-    source pixel read once, the indices and params read, the float32 crop
-    written."""
-    b, dh, dw = iy.shape[0], iy.shape[1], ix.shape[1]
+def source_pixels(iy, ix):
+    """Distinct valid source pixels of each frame's crop, summed."""
     src = 0
-    for i in range(b):
+    for i in range(iy.shape[0]):
         rows = np.unique(iy[i][iy[i] >= 0]).size
         cols = np.unique(ix[i][ix[i] >= 0]).size
         src += rows * cols
-    return (src * frames.element_size() + b * (dh + dw) * 4 + b * 16
-            + b * dh * dw * 4)
+    return src
+
+
+def warp_bytes(esize, iy, ix, computed):
+    """Bytes the warp must move for these inputs: each distinct valid
+    source pixel read once and the float32 crop written once; the loaded
+    entry also reads the indices and tail parameters, the computed entry
+    the CoM and cube (24 B) and writes M (36 B) per frame."""
+    b, dh, dw = iy.shape[0], iy.shape[1], ix.shape[1]
+    per_frame = 24 + 36 if computed else (dh + dw) * 4 + 16
+    return source_pixels(iy, ix) * esize + b * per_frame + b * dh * dw * 4
+
+
+def sector_bytes(esize, iy, ix):
+    """The 32-byte sectors of the frames that the gathers touch, in bytes
+    (what DRAM serves when nothing is cached, beside the bound's count)."""
+    b, h = iy.shape[0], H
+    valid = (iy >= 0)[:, :, None] & (ix >= 0)[:, None, :]
+    addr = ((np.arange(b)[:, None, None] * h + iy[:, :, None]) * W
+            + ix[:, None, :]) * esize // 32
+    return np.unique(addr[valid]).size * 32
+
+
+def same_bits(torch, a, b):
+    """The same shape, dtype and NaN positions, and the same bits
+    everywhere else (so -0.0 != 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    if not torch.equal(na, nb):
+        return False
+    return torch.equal(a.masked_fill(na, 0).view(torch.int32),
+                       b.masked_fill(nb, 0).view(torch.int32))
+
+
+def abs_err(a, b):
+    return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def check_warp(torch, WK, cam, ft, c, cu, what):
+    """Both warp entries on one batch against their plain versions on the
+    card, crops and M bit for bit (NaN-aware); returns (the plain indices,
+    the largest |kernel - plain|)."""
+    Ms, iy, ix, par = WK.crop_indices(c, cu, cam.fx, cam.fy, (H, W))
+    loaded = WK.warp_normalize(ft, iy, ix, par)
+    crops, got_M = WK.crop_normalize(ft, c, cu, cam.fx, cam.fy)
+    torch.cuda.synchronize()
+    want = WK.warp_normalize_reference(ft, iy, ix, par)
+    for name, got, ref in (("warp_normalize crops", loaded, want),
+                           ("crop_normalize crops", crops, want),
+                           ("crop_normalize M", got_M, Ms)):
+        if not same_bits(torch, got, ref):
+            raise AssertionError(f"{name} != plain version at {what}: max "
+                                 f"|diff| {abs_err(got, ref)}")
+    if not bool(crops.isfinite().all()):
+        raise AssertionError(f"non-finite crops at {what}")
+    return (iy, ix, par), max(abs_err(loaded, want), abs_err(crops, want),
+                              abs_err(got_M, Ms))
+
+
+def time_kernel(torch, kernel, plain, symbol, iters):
+    """Device ms of the kernel (torch.profiler, kernels whose name holds
+    ``symbol``) and of all kernels of its plain version, and the per-call
+    ms of both from CUDA events."""
+    call_ms = cuda_ms(torch, kernel, iters)
+    plain_call_ms = cuda_ms(torch, plain, iters)
+    # a call timed back to back also holds the host's launch cost, which
+    # is larger than the kernel at these sizes
+    by_name, _, _ = profile_kernels(torch, kernel)
+    dev_ms = sum(ms for k, (ms, _) in by_name.items() if symbol in k)
+    _, plain_dev_ms, _ = profile_kernels(torch, plain)
+    return {"ms": dev_ms or call_ms, "call_ms": call_ms,
+            "plain_ms": plain_dev_ms or plain_call_ms,
+            "plain_call_ms": plain_call_ms,
+            "timed_by": "profiler" if dev_ms and plain_dev_ms
+            else "cuda events"}
+
+
+def bound(nbytes, flops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_warp(torch, dev, cam):
-    """Kernel vs plain version, bit for bit; returns the timing rows."""
-    from lsps_tpu_torch.ops.kernels.warp import (warp_normalize,
-                                                 warp_normalize_reference)
-    from lsps_tpu_torch.serve.preprocess import crop_indices
+    """Both warp entries vs their plain versions, bit for bit (crops and M,
+    NaN-aware), on the edge frames and at the serving batch sizes, float32
+    and uint16 frames, then timed; returns (timing rows, max |err| by
+    entry)."""
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
 
     rows, max_err = [], 0.0
-    for b in WARP_BATCHES:
-        frames, coms, cubes = warp_batch(b, seed=100 + b)
-        _, iy, ix, par = crop_indices(torch.from_numpy(coms).to(dev),
-                                      torch.from_numpy(cubes).to(dev),
-                                      cam.fx, cam.fy, (H, W))
+    batches = [("edges", edge_frames(np.random.RandomState(3)))]
+    batches += [(b, warp_batch(b, seed=100 + b)[:2]) for b in WARP_BATCHES]
+    for b, (frames, coms) in batches:
+        n = len(frames)
+        c = torch.from_numpy(coms).to(dev)
+        cu = torch.full((n, 3), CUBE_MM, device=dev)
         for kind, f in (("f32", frames), ("u16", whole_mm_u16(frames))):
             ft = torch.from_numpy(f).to(dev)
-            got = warp_normalize(ft, iy, ix, par)
-            torch.cuda.synchronize()
-            want = warp_normalize_reference(ft, iy, ix, par)
-            err = float((got - want).abs().max())
+            (iy, ix, par), err = check_warp(torch, WK, cam, ft, c, cu,
+                                            f"B={b} {kind}")
             max_err = max(max_err, err)
-            if not torch.equal(got, want) or not bool(got.isfinite().all()):
-                raise AssertionError(f"warp kernel != plain version at "
-                                     f"B={b} {kind}: max |diff| {err}")
             if kind == "u16":
-                as_f32 = warp_normalize(ft.to(torch.float32), iy, ix, par)
-                if not torch.equal(got, as_f32):
+                ff = ft.to(torch.float32)
+                if not (torch.equal(WK.warp_normalize(ft, iy, ix, par),
+                                    WK.warp_normalize(ff, iy, ix, par))
+                        and torch.equal(
+                            WK.crop_normalize(ft, c, cu, cam.fx, cam.fy)[0],
+                            WK.crop_normalize(ff, c, cu, cam.fx, cam.fy)[0])):
                     raise AssertionError(f"uint16 frames != their float32 "
                                          f"copy at B={b}")
+            if b == "edges":
+                continue
+            # on the card crop_normalize_batch is one kernel, index math
+            # included
+            by_name, _, _ = profile_kernels(torch, functools.partial(
+                crop_normalize_batch, ft, c, cu, cam.fx, cam.fy), iters=3)
+            per_call = sum(k for _, k in by_name.values())
+            if round(per_call, 6) != 1:
+                raise AssertionError(f"crop_normalize_batch B={b}: "
+                                     f"{per_call} kernels per call: "
+                                     f"{list(by_name)}")
             iters = 200 if b < 256 else 50
-            nbytes = warp_bytes(ft, iy.cpu().numpy(), ix.cpu().numpy())
-            flops = WARP_FLOPS_PER_PIXEL * b * 128 * 128
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / F32_FLOPS_PER_S * 1e3
-            kernel = functools.partial(warp_normalize, ft, iy, ix, par)
-            plain = functools.partial(warp_normalize_reference, ft, iy, ix,
-                                      par)
-            call_ms = cuda_ms(torch, kernel, iters)
-            plain_call_ms = cuda_ms(torch, plain, iters)
-            # device time: the kernel's own, and all kernels of the plain
-            # version; a call timed back to back also holds the host's
-            # launch cost, which is larger than the kernel at these sizes
-            by_name, _, _ = profile_kernels(torch, kernel)
-            dev_ms = sum(ms for k, (ms, _) in by_name.items()
-                         if "warp_normalize_kernel" in k)
-            _, plain_dev_ms, _ = profile_kernels(torch, plain)
-            rows.append({
-                "batch": b, "frames": kind,
-                "ms": dev_ms or call_ms, "call_ms": call_ms,
-                "plain_ms": plain_dev_ms or plain_call_ms,
-                "plain_call_ms": plain_call_ms,
-                "timed_by": "profiler" if dev_ms and plain_dev_ms
-                else "cuda events",
-                "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            })
-        log(f"warp B={b}: kernel bit-equal to the plain version "
-            f"(float32 and uint16 frames)")
+            iy_np, ix_np = iy.cpu().numpy(), ix.cpu().numpy()
+            esize = ft.element_size()
+            pixels = b * 128 * 128
+            flops = WARP_FLOPS_PER_PIXEL * pixels
+            for entry, kernel, plain, computed in (
+                    ("crop_normalize",
+                     functools.partial(WK.crop_normalize, ft, c, cu, cam.fx,
+                                       cam.fy),
+                     functools.partial(WK.crop_normalize_reference, ft, c,
+                                       cu, cam.fx, cam.fy), True),
+                    ("warp_normalize",
+                     functools.partial(WK.warp_normalize, ft, iy, ix, par),
+                     functools.partial(WK.warp_normalize_reference, ft, iy,
+                                       ix, par), False)):
+                row = {"entry": entry, "batch": b, "frames": kind,
+                       **time_kernel(torch, kernel, plain, "crop_warp_kernel",
+                                     iters),
+                       **bound(warp_bytes(esize, iy_np, ix_np, computed),
+                               flops + (WARP_INDEX_FLOPS * b * 256
+                                        if computed else 0)),
+                       "sector_bytes": sector_bytes(esize, iy_np, ix_np)
+                       + pixels * 4}
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+                log(f"{entry} B={b} {kind}: {row['ms']:.5f} ms device, "
+                    f"bound {row['bound_ms']:.5f} ms "
+                    f"({row['share_of_bound']:.0%}), plain "
+                    f"{row['plain_ms']:.5f} ms")
+        log(f"warp B={b}: both entries bit-equal to their plain versions, "
+            f"crops and M (float32 and uint16 frames)")
     return rows, max_err
+
+
+def phase_warp_random(torch, dev, cam):
+    """Both entries over RANDOM_COMS random CoMs and cubes, drawn as
+    tests/test_torch_warp.py draws them, on frames whose pixels are
+    distinct depths inside each crop's z-range, so that an index off by
+    one changes the crop; the card's plain indices are also held against
+    the CPU's (which the tests hold against the JAX package)."""
+    from lsps_tpu_torch.ops.kernels import warp as WK
+
+    rs = np.random.RandomState(0)
+    n = RANDOM_COMS
+    coms = np.stack([rs.uniform(-50, 700, n), rs.uniform(-50, 530, n),
+                     rs.uniform(200, 2000, n)], 1).astype(np.float32)
+    cubes = rs.uniform(150, 400, (n, 3)).astype(np.float32)
+    cubes[::2] = 300.0
+    ramp = ((rs.permutation(H * W).reshape(H, W) + 0.5) / (H * W)
+            ).astype(np.float32)
+    ramp = torch.from_numpy(ramp).to(dev)
+    max_err, empty = 0.0, 0
+    for lo in range(0, n, RANDOM_CHUNK):
+        c = torch.from_numpy(coms[lo:lo + RANDOM_CHUNK]).to(dev)
+        cu = torch.from_numpy(cubes[lo:lo + RANDOM_CHUNK]).to(dev)
+        frames = (c[:, 2, None, None]
+                  + cu[:, 2, None, None] * (0.9 * ramp - 0.45))
+        (iy, ix, par), err = check_warp(torch, WK, cam, frames, c, cu,
+                                        f"random CoMs {lo}+")
+        max_err = max(max_err, err)
+        empty += int(((iy < 0).all(1) | (ix < 0).all(1)).sum())
+        cpu = WK.crop_indices(c.cpu(), cu.cpu(), cam.fx, cam.fy, (H, W))
+        card = WK.crop_indices(c, cu, cam.fx, cam.fy, (H, W))
+        for name, a, b in zip(("M", "iy", "ix", "params"), card, cpu):
+            if not same_bits(torch, a.cpu().float(), b.float()):
+                raise AssertionError(f"plain {name} card != CPU at random "
+                                     f"CoMs {lo}+")
+        del frames
+    log(f"warp: {n} random CoMs ({empty} with an empty crop): both entries "
+        f"bit-equal to their plain versions, crops and M; plain indices "
+        f"card == CPU")
+    return max_err
+
+
+def phase_warp_sweep(torch, dev, cam):
+    """Device ms of crop_normalize (float32 frames) at every block shape
+    the kernel takes, at the serving batch sizes; the shape is restored
+    after."""
+    from lsps_tpu_torch.ops.kernels import warp as WK
+
+    inputs = {}
+    for b in WARP_BATCHES:
+        frames, coms, cubes = warp_batch(b, seed=100 + b)
+        inputs[b] = tuple(torch.from_numpy(a).to(dev)
+                          for a in (frames, coms, cubes))
+    rows = []
+    prev = WK.BLOCK_SHAPE
+    try:
+        for rpt in SWEEP_ROWS:
+            for threads in SWEEP_THREADS:
+                WK.set_block_shape(rpt, threads)
+                row = {"rows_per_thread": rpt, "threads": threads}
+                for b, (ft, c, cu) in inputs.items():
+                    by_name, _, _ = profile_kernels(torch, functools.partial(
+                        WK.crop_normalize, ft, c, cu, cam.fx, cam.fy),
+                        iters=20)
+                    row[f"B{b}_ms"] = sum(ms for k, (ms, _) in
+                                          by_name.items()
+                                          if "crop_warp_kernel" in k)
+                rows.append(row)
+                log("sweep " + json.dumps(row))
+    finally:
+        WK.set_block_shape(*prev)
+    return rows
 
 
 def seeded_state_dict(hyp, seed, nets=("dis", "vae")):
@@ -340,6 +524,7 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     whole-mm uint16 frames, launch counts read around them; then the
     joints against the plain route on the card and against the CPU.  TF32
     is off for the whole phase."""
+    from lsps_tpu_torch.ops.kernels import warp as WK
     from lsps_tpu_torch.serve.inference import PoseEstimator
     from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
 
@@ -350,7 +535,7 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     try:
         est = PoseEstimator(hyp, sd, device=dev)
         reqs = serve_requests()
-        for k in kernels.values():
+        for k in (*kernels.values(), WK.warp_normalize):
             k.launches = 0
         out = {}
         for b, (frames, coms, cubes) in reqs.items():
@@ -366,6 +551,13 @@ def phase_serve(torch, dev, hyp, sd, kernels):
             if n == 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"main path")
+        # four calls per request, each one crop_normalize launch; the
+        # loaded-index entry is off the main path
+        if (launches["crop_normalize"] != 4 * len(reqs)
+                or WK.warp_normalize.launches != 0):
+            raise AssertionError(f"crop launches {launches}, warp_normalize "
+                                 f"{WK.warp_normalize.launches}: the main "
+                                 f"path gives {4 * len(reqs)} and 0")
 
         cpu_est = PoseEstimator(hyp, sd, device="cpu")
         worst = 0.0
@@ -418,10 +610,27 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     return launches, worst
 
 
+def index_route(frames, coms, cubes, fx, fy, dsize=(128, 128)):
+    """The crop as the serving path ran it before the index math moved
+    into the kernel: crop_indices in PyTorch ops, then the loaded-index
+    entry."""
+    import torch
+
+    from lsps_tpu_torch.ops.kernels import warp as WK
+
+    Ms, iy, ix, par = WK.crop_indices(coms.to(torch.float32),
+                                     cubes.to(torch.float32), fx, fy,
+                                     tuple(frames.shape[1:]), dsize)
+    return WK.warp_normalize(frames.contiguous(), iy, ix, par), Ms
+
+
 def phase_timing(torch, dev, hyp, sd):
     """predict_frames per call (B=1) and frames/s (B=32, 256), float32 and
     bf16 trunk, frames already on the card; PyTorch's default TF32
-    settings."""
+    settings.  Beside each, the same call with the crop on the index route
+    (crop_indices in PyTorch ops + the loaded-index kernel), timed in
+    turns: index, kernel, kernel, index."""
+    from lsps_tpu_torch.serve import inference
     from lsps_tpu_torch.serve.inference import PoseEstimator
 
     rows = []
@@ -434,24 +643,52 @@ def phase_timing(torch, dev, hyp, sd):
             c = torch.from_numpy(np.tile(coms, (reps, 1))[:b]).to(dev)
             cu = torch.full((b, 3), CUBE_MM, device=dev)
             iters = 50 if b < 256 else 10
-            ms = host_ms(torch, lambda: est.predict_frames(f, c, cu), iters)
+
+            def call():
+                return est.predict_frames(f, c, cu)
+
+            def measure():
+                ms = host_ms(torch, call, iters)
+                by_name, dev_ms, wall = profile_kernels(torch, call)
+                return ms, by_name, dev_ms, wall
+
+            def index_measure():
+                with unittest.mock.patch.object(
+                        inference, "crop_normalize_batch", index_route):
+                    return measure()
+
+            runs = [index_measure(), measure(), measure(), index_measure()]
+            ms = (runs[1][0] + runs[2][0]) / 2
+            idx_ms = (runs[0][0] + runs[3][0]) / 2
+            _, by_name, dev_ms, wall = runs[2]
+            _, idx_names, idx_dev_ms, idx_wall = runs[3]
             raw_ms = host_ms(torch, lambda: est.predict_raw(f, cu), iters)
-            by_name, dev_ms, wall = profile_kernels(
-                torch, lambda: est.predict_frames(f, c, cu))
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
             rows.append({"dtype": str(dtype).replace("torch.", ""),
                          "batch": b, "predict_frames_ms": ms,
+                         "predict_frames_ms_runs": [runs[1][0], runs[2][0]],
                          "frames_per_s": b * 1e3 / ms,
                          "predict_raw_ms": raw_ms,
                          "profiled_wall_ms": wall, "device_ms": dev_ms,
                          "device_idle_share": max(0.0, 1 - dev_ms / wall),
                          "kernels_per_call": sum(n for _, n in
                                                  by_name.values()),
+                         "index_route_ms": idx_ms,
+                         "index_route_ms_runs": [runs[0][0], runs[3][0]],
+                         "index_route_device_ms": idx_dev_ms,
+                         "index_route_idle_share": max(
+                             0.0, 1 - idx_dev_ms / idx_wall),
+                         "index_route_kernels_per_call": sum(
+                             n for _, n in idx_names.values()),
                          "top_kernels_ms": [[k[:60], round(v[0], 5)]
                                             for k, v in top]})
-            log(f"predict_frames {rows[-1]['dtype']} B={b}: {ms:.3f} ms/call"
-                f", {b * 1e3 / ms:.1f} frames/s; predict_raw {raw_ms:.3f} "
-                f"ms/call")
+            r = rows[-1]
+            log(f"predict_frames {r['dtype']} B={b}: {ms:.3f} ms/call, "
+                f"{b * 1e3 / ms:.1f} frames/s, {r['kernels_per_call']:.0f} "
+                f"kernels, idle {r['device_idle_share']:.2f} (index route "
+                f"{idx_ms:.3f} ms, {r['index_route_kernels_per_call']:.0f} "
+                f"kernels, idle {r['index_route_idle_share']:.2f}); "
+                f"predict_raw {raw_ms:.3f} ms/call")
     return rows
 
 
@@ -611,26 +848,13 @@ def phase_norm_timing(torch, dev):
                                       mean, rstd2)),
             }
             for name, (kernel, plain) in calls.items():
-                call_ms = cuda_ms(torch, kernel, 100)
-                plain_call_ms = cuda_ms(torch, plain, 50)
-                by_name, _, _ = profile_kernels(torch, kernel)
-                dev_ms = sum(ms for k, (ms, _) in by_name.items()
-                             if NORM_SYMBOL[name] in k)
-                _, plain_dev_ms, _ = profile_kernels(torch, plain)
-                nbytes = norm_bytes(name, shape, x.element_size())
-                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = (NORM_FLOPS_PER_VALUE[name] * x.numel()
-                          / F32_FLOPS_PER_S * 1e3)
                 row = {"kernel": name, "shape": list(shape),
-                       "dtype": str(dtype)[6:], "ms": dev_ms or call_ms,
-                       "call_ms": call_ms,
-                       "plain_ms": plain_dev_ms or plain_call_ms,
-                       "plain_call_ms": plain_call_ms,
-                       "timed_by": "profiler" if dev_ms and plain_dev_ms
-                       else "cuda events",
-                       "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-                       "bound_by": "bytes" if bytes_ms >= ops_ms
-                       else "operations", "library_ms": None}
+                       "dtype": str(dtype)[6:],
+                       **time_kernel(torch, kernel, plain, NORM_SYMBOL[name],
+                                     100),
+                       **bound(norm_bytes(name, shape, x.element_size()),
+                               NORM_FLOPS_PER_VALUE[name] * x.numel()),
+                       "library_ms": None}
                 if name == "in_act_forward":
                     ident = functools.partial(N.in_act_forward, x, None)
                     lib = functools.partial(F.instance_norm, x, eps=N.EPS)
@@ -977,7 +1201,7 @@ def main() -> int:
         return 2
     from lsps_tpu_torch.config import load_config
     from lsps_tpu_torch.data.camera import Camera
-    from lsps_tpu_torch.ops.kernels.warp import warp_normalize
+    from lsps_tpu_torch.ops.kernels.warp import crop_normalize
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -986,10 +1210,12 @@ def main() -> int:
     cam = Camera.nyu()
     hyp = load_config(str(Path(__file__).resolve().parent / "exps"
                           / "nnyu.yaml")).hyperparameters
-    kernels = {"warp_normalize": warp_normalize}
+    kernels = {"crop_normalize": crop_normalize}
 
     phase_build()
     warp_rows, warp_err = phase_warp(torch, dev, cam)
+    warp_err = max(warp_err, phase_warp_random(torch, dev, cam))
+    sweep_rows = phase_warp_sweep(torch, dev, cam)
     sd = seeded_state_dict(hyp, seed=0)
     launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
     timing = phase_timing(torch, dev, hyp, sd)
@@ -1004,29 +1230,42 @@ def main() -> int:
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
 
     log("warp timing " + json.dumps(warp_rows))
+    log("warp sweep " + json.dumps(sweep_rows))
     log("serve timing " + json.dumps(timing))
     log("norm timing " + json.dumps(norm_rows))
     log("train timing " + json.dumps(train_rows))
     log("train checks " + json.dumps(train_checks))
-    main_row = next(r for r in warp_rows
-                    if r["batch"] == 32 and r["frames"] == "f32")
-    log("library_ms: null for warp_normalize: no single PyTorch call "
-        "gathers, clamps and normalizes a crop")
+
+    def warp_row(entry, b=32):
+        return next(r for r in warp_rows if r["entry"] == entry
+                    and r["batch"] == b and r["frames"] == "f32")
+
+    log("library_ms: null for crop_normalize and its loaded-index entry: "
+        "no single PyTorch call gathers, clamps and normalizes a crop")
     log("library_ms: F.instance_norm for in_act_forward (timed at slope "
         "None, the function it computes; ms_slope_none beside it); null "
         "for in_act_backward, in_res_forward and in_res_backward: no "
         "single PyTorch call computes them")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "timed_by")
+    main_row, loaded_row = warp_row("crop_normalize"), warp_row(
+        "warp_normalize")
     rows = [{
-        "name": "warp_normalize", "route": "cuda",
+        "name": "crop_normalize", "route": "cuda",
         "source": "lsps_tpu_torch/csrc/warp.cu",
-        "replaces": "lsps_tpu/ops/pallas/warp.py:42",
-        "launches": launches["warp_normalize"],
-        "max_abs_err": warp_err, "ms": main_row["ms"],
-        "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None,
-        "timed_by": main_row["timed_by"],
+        "replaces": "lsps_tpu/ops/pallas/warp.py:42 and :124",
+        "launches": launches["crop_normalize"],
+        "max_abs_err": warp_err, **{k: main_row[k] for k in keys},
+        "library_ms": None,
         "at": "batch 32 float32 frames, 128x128 crops",
+        "ms_by_batch": {b: warp_row("crop_normalize", b)["ms"]
+                        for b in WARP_BATCHES},
+        "bound_ms_by_batch": {b: warp_row("crop_normalize", b)["bound_ms"]
+                              for b in WARP_BATCHES},
+        # the same kernel with its indices read from memory: the
+        # gather-only check, off the main path
+        "loaded_indices": {"name": "warp_normalize",
+                           "launches_on_main_path": 0,
+                           **{k: loaded_row[k] for k in keys}},
     }]
     for name, replaces in NORM_REPLACES.items():
         r = next(r for r in norm_rows if r["kernel"] == name

@@ -1,7 +1,9 @@
-// Serving crop warp + clamp/normalize tail for Hopper (sm_90a).
+// Serving crop warp + clamp/normalize tail for Hopper (sm_90a), with the
+// crop-index math computed inside the kernel.
 //
-// Replaces the TPU kernel lsps_tpu/ops/pallas/warp.py:_warp_kernel.
-// Per frame b and output pixel (r, c) of a (dh, dw) crop:
+// Replaces the TPU kernel lsps_tpu/ops/pallas/warp.py:_warp_kernel and the
+// per-sample index math of crop_normalize_batch_pallas that feeds it.  Per
+// frame b and output pixel (r, c) of a (dh, dw) crop:
 //
 //   v = frame[b, iy[b, r], ix[b, c]]   (0 where either index is -1,
 //                                       0 where the sample is not finite)
@@ -10,113 +12,376 @@
 //   v = (v == 0) ? zend : v                      background -> far plane
 //   out[b, r, c] = (v - com_z) / half
 //
-// with params[b] = (zstart, zend, com_z, half).  The TPU kernel selected
-// rows and columns with two one-hot MXU contractions, a workaround for
-// XLA's gather lowering on that chip; here it is a direct gather, one
-// thread per output pixel.  Only the sampled pixels are read, so a frame
-// needs no sanitising pass over all of it: a non-finite sample is set to
-// 0 where it is read, which gives what sanitising the whole frame gives.
-// The frame is read in its stored type (float32, or uint16 millimetres as
-// the sensor delivers them).
+// with (zstart, zend, com_z, half) the frame's tail parameters.  Two
+// entries share one templated kernel:
 //
-// Bound on this card: bytes.  A frame writes 64 KiB of float32 output and
-// reads at most one source pixel per output pixel plus 1 KiB of indices;
-// there are 9 flops a pixel.  At batch 1 the 64 blocks are far too few to
-// fill 132 SMs and the launch itself dominates.  The design keeps the
-// store coalesced (neighbouring threads write neighbouring columns) and
-// loads the indices once per block into shared memory; wider stores and
-// several rows per thread are left for later work.
+// * lsps_crop_normalize computes iy, ix, the tail parameters and the crop
+//   affine M from the frame's CoM and cube, so a batch is one launch.  The
+//   math is that of lsps_tpu_torch/ops/kernels/warp.py:crop_indices, op for
+//   op in float32, every operation an explicitly rounded intrinsic
+//   (__fmul_rn, __fdiv_rn, __fadd_rn, __fsub_rn, __fmaf_rn): nvcc contracts
+//   a plain `a * b + c` into one FMA by default, and one stray rounding
+//   moves a crop bound by a pixel for a few CoMs in 1e5.  A failed
+//   detection (CoM 0) gives infinite bounds and NaN in M; no NaN or inf is
+//   ever converted to an index (the mask is taken in float first).
+// * lsps_warp_normalize reads iy, ix and the tail parameters from memory.
 //
-// Arithmetic is IEEE: explicit round-to-nearest subtract and divide, so
-// the result is bit-equal to the plain PyTorch version whatever flags the
-// file is built with.  Do not build with --use_fast_math.
+// Bound on this card: bytes.  A 128x128 crop writes 64 KiB of float32 and
+// reads at most one source pixel per output pixel; the index math is a
+// few dozen flops per row and column.  The TPU kernel selected rows and
+// columns with two one-hot MXU contractions; here each thread gathers
+// directly.  A block covers one tile of rows of one frame (frames on
+// grid.x, tiles on grid.y).  Its first row of threads computes (or loads)
+// the frame's source columns and the tile's source rows once, into shared
+// memory, with the tail's two constant outputs (near plane, far plane);
+// then, to keep enough bytes in flight for HBM, each thread covers VEC = 4
+// adjacent columns (one 16-byte store) and RPT rows and issues all of its
+// RPT * VEC gathers before the tails and the streaming stores.  An invalid
+// row or column issues no load, and only a sample inside the z-range pays
+// for a division.  The rows per thread and the threads per block are set
+// at run time (lsps_warp_set_block) from the sweep recorded in PERF.md.
+// The frames' 32-byte sectors that the gathers touch hold about twice the
+// source pixels the bound counts: a crop samples every 1.5-2 source pixels
+// of a row, and DRAM serves whole sectors.
+//
+// Arithmetic is IEEE throughout, so the results are bit-equal to the plain
+// PyTorch version whatever flags the file is built with.  Do not build with
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
 
-__device__ __forceinline__ bool is_finite(float v) {
-  return (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
+// Set by lsps_warp_set_block before the first launch; 0 = not set.
+int g_rows_per_thread = 0;
+int g_threads = 0;
+
+__device__ __forceinline__ float sanitize(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u ? 0.0f : v;
 }
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(uint16_t v) {
+__device__ __forceinline__ float sanitize(uint16_t v) {
   return static_cast<float>(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-warp_normalize_kernel(const T* __restrict__ frames,
-                      const int32_t* __restrict__ iy,
-                      const int32_t* __restrict__ ix,
-                      const float* __restrict__ params,
-                      float* __restrict__ out,
-                      int h, int w, int dh, int dw) {
-  extern __shared__ int32_t s_idx[];  // iy[0:dh] then ix[0:dw]
-  __shared__ float s_par[4];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < dh; i += blockDim.x) {
-    s_idx[i] = iy[static_cast<int64_t>(b) * dh + i];
-  }
-  for (int i = threadIdx.x; i < dw; i += blockDim.x) {
-    s_idx[dh + i] = ix[static_cast<int64_t>(b) * dw + i];
-  }
-  if (threadIdx.x < 4) s_par[threadIdx.x] = params[b * 4 + threadIdx.x];
-  __syncthreads();
+struct Args {
+  const void* frames;
+  const int32_t* iy;      // loaded indices: (b, dh), (b, dw), (b, 4)
+  const int32_t* ix;
+  const float* params;
+  const float* coms;      // computed indices: (b, 3), (b, 3)
+  const float* cubes;
+  float fx, fy, rfx, rfy;
+  float* Ms;              // (b, 3, 3), computed indices only
+  float* out;             // (b, dh, dw)
+  int h, w, dh, dw;
+};
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= dh * dw) return;
-  const int r = p / dw;
-  const int c = p - r * dw;
-  const int sy = s_idx[r];
-  const int sx = s_idx[dh + c];
-  float v = 0.0f;
-  if (sy >= 0 && sx >= 0) {
-    v = to_float(frames[(static_cast<int64_t>(b) * h + sy) * w + sx]);
-    if (!is_finite(v)) v = 0.0f;
-  }
-  const float zstart = s_par[0];
-  const float zend = s_par[1];
-  if (v < zstart && v != 0.0f) v = zstart;
-  if (v > zend && v != 0.0f) v = 0.0f;
-  if (v == 0.0f) v = zend;
-  out[static_cast<int64_t>(b) * dh * dw + p] =
-      __fdiv_rn(__fsub_rn(v, s_par[2]), s_par[3]);
+// The crop of one frame, as crop_indices computes it.
+struct Crop {
+  float zstart, zend, com_z, half;   // the tail
+  float scale;
+  float xstart, xoff, xlim;          // xlim = xoff + ceil(wb * scale)
+  float ystart, yoff, ylim;
+};
+
+// floor(fma(fma(c * z, r, half) / z, f, 0.5)): one edge of the 2D box.
+__device__ __forceinline__ float edge(float c, float z, float r, float f,
+                                      float half) {
+  return floorf(__fmaf_rn(
+      __fdiv_rn(__fmaf_rn(__fmul_rn(c, z), r, half), z), f, 0.5f));
 }
 
-template <typename T>
-int launch(const void* frames, const void* iy, const void* ix,
-           const void* params, void* out, int b, int h, int w, int dh,
-           int dw, cudaStream_t stream) {
-  const dim3 grid((dh * dw + kThreads - 1) / kThreads, b);
-  const size_t smem = static_cast<size_t>(dh + dw) * sizeof(int32_t);
-  warp_normalize_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(frames), static_cast<const int32_t*>(iy),
-      static_cast<const int32_t*>(ix), static_cast<const float*>(params),
-      static_cast<float*>(out), h, w, dh, dw);
+__device__ Crop compute_crop(const Args& a, int b, float* M) {
+  const float u = a.coms[b * 3], v = a.coms[b * 3 + 1],
+              z = a.coms[b * 3 + 2];
+  // x / 2 and x * 0.5 round the same real number: the same bits
+  const float half_x = __fmul_rn(a.cubes[b * 3], 0.5f);
+  const float half_y = __fmul_rn(a.cubes[b * 3 + 1], 0.5f);
+  const float half_z = __fmul_rn(a.cubes[b * 3 + 2], 0.5f);
+  Crop k;
+  k.zstart = __fsub_rn(z, half_z);
+  k.zend = __fadd_rn(z, half_z);
+  k.com_z = z;
+  k.half = half_z;
+  k.xstart = edge(u, z, a.rfx, a.fx, -half_x);
+  const float xend = edge(u, z, a.rfx, a.fx, half_x);
+  k.ystart = edge(v, z, a.rfy, a.fy, -half_y);
+  const float yend = edge(v, z, a.rfy, a.fy, half_y);
+  const float wb = __fsub_rn(xend, k.xstart);
+  const float hb = __fsub_rn(yend, k.ystart);
+  const float dsw = static_cast<float>(a.dw), dsh = static_cast<float>(a.dh);
+  const bool wide = wb > hb;
+  k.scale = wide ? __fdiv_rn(dsw, wb) : __fdiv_rn(dsh, hb);
+  const float sz_w = floorf(wide ? dsw : __fmul_rn(wb, k.scale));
+  const float sz_h = floorf(wide ? __fmul_rn(hb, k.scale) : dsh);
+  k.xoff = floorf(__fsub_rn(__fmul_rn(dsw, 0.5f), __fmul_rn(sz_w, 0.5f)));
+  k.yoff = floorf(__fsub_rn(__fmul_rn(dsh, 0.5f), __fmul_rn(sz_h, 0.5f)));
+  k.xlim = __fadd_rn(k.xoff, ceilf(__fmul_rn(wb, k.scale)));
+  k.ylim = __fadd_rn(k.yoff, ceilf(__fmul_rn(hb, k.scale)));
+  if (M != nullptr) {
+    M[0] = k.scale;
+    M[1] = 0.0f;
+    M[2] = __fmaf_rn(-k.xstart, k.scale, k.xoff);
+    M[3] = 0.0f;
+    M[4] = k.scale;
+    M[5] = __fmaf_rn(-k.ystart, k.scale, k.yoff);
+    M[6] = 0.0f;
+    M[7] = 0.0f;
+    M[8] = 1.0f;
+  }
+  return k;
+}
+
+// Source row or column of output position pos, -1 where it lies outside
+// the destination box or the source frame.  src is converted only where
+// the mask holds, and there it is finite and in [0, n_src).
+__device__ __forceinline__ int axis_index(float pos, float off, float start,
+                                          float lim, float scale,
+                                          int n_src) {
+  const float src =
+      floorf(__fadd_rn(__fdiv_rn(__fsub_rn(pos, off), scale), start));
+  const bool ok = pos >= off && pos < lim && src >= 0.0f &&
+                  src < static_cast<float>(n_src);
+  return ok ? static_cast<int>(src) : -1;
+}
+
+// What the tail makes of x once the near clamp is done.
+__device__ __forceinline__ float after_near(float x, float zend,
+                                            float com_z, float half) {
+  if (x > zend && x != 0.0f) x = 0.0f;
+  if (x == 0.0f) x = zend;
+  return __fdiv_rn(__fsub_rn(x, com_z), half);
+}
+
+// The tail of one frame.  A sample below zstart becomes zstart, and one
+// that is 0 or beyond zend becomes zend: both outputs are computed once
+// per block, so only a sample inside the z-range is divided.
+struct Tail {
+  float zstart, zend, com_z, half, near, far;
+
+  __device__ __forceinline__ float operator()(float v) const {
+    if (v < zstart && v != 0.0f) return near;
+    if (v == 0.0f || v > zend) return far;
+    return __fdiv_rn(__fsub_rn(v, com_z), half);
+  }
+};
+
+__device__ __forceinline__ Tail make_tail(float zstart, float zend,
+                                          float com_z, float half) {
+  return {zstart, zend, com_z, half, after_near(zstart, zend, com_z, half),
+          after_near(0.0f, zend, com_z, half)};
+}
+
+// Block (tx, ty): tx threads across the columns, VEC columns each; ty
+// threads down the block's tile of ty * RPT rows, RPT rows each, ty
+// apart.  grid = (b, row tiles).  The threads of the first block row put
+// the frame's dw source columns and the tile's source rows into shared
+// memory (computed from the CoM and cube, or loaded), and the tail's
+// constants; then every thread gathers.
+template <typename T, int VEC, int RPT, bool kComputed>
+__global__ void __launch_bounds__(kMaxThreads)
+crop_warp_kernel(const Args a) {
+  extern __shared__ __align__(16) int s_idx[];  // ix[0:dw], tile's iy
+  __shared__ Tail s_tail;
+  const int b = blockIdx.x;
+  const int tile = blockDim.y * RPT;
+  const int row0 = blockIdx.y * tile;
+  const int n_rows = min(tile, a.dh - row0);
+  if (threadIdx.y == 0) {
+    if constexpr (kComputed) {
+      const bool first = blockIdx.y == 0 && threadIdx.x == 0;
+      const Crop k = compute_crop(
+          a, b, first ? a.Ms + static_cast<int64_t>(b) * 9 : nullptr);
+      for (int i = threadIdx.x; i < a.dw + n_rows; i += blockDim.x) {
+        s_idx[i] = i < a.dw
+                       ? axis_index(static_cast<float>(i), k.xoff, k.xstart,
+                                    k.xlim, k.scale, a.w)
+                       : axis_index(static_cast<float>(row0 + i - a.dw),
+                                    k.yoff, k.ystart, k.ylim, k.scale, a.h);
+      }
+      if (threadIdx.x == 0) s_tail = make_tail(k.zstart, k.zend, k.com_z,
+                                               k.half);
+    } else {
+      for (int i = threadIdx.x; i < a.dw + n_rows; i += blockDim.x) {
+        s_idx[i] = i < a.dw
+                       ? a.ix[static_cast<int64_t>(b) * a.dw + i]
+                       : a.iy[static_cast<int64_t>(b) * a.dh + row0 + i -
+                              a.dw];
+      }
+      if (threadIdx.x == 0) {
+        const float* p = a.params + static_cast<int64_t>(b) * 4;
+        s_tail = make_tail(p[0], p[1], p[2], p[3]);
+      }
+    }
+  }
+  __syncthreads();
+  const Tail tail = s_tail;
+  const T* frame = static_cast<const T*>(a.frames) +
+                   static_cast<int64_t>(b) * a.h * a.w;
+
+  int rows[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = threadIdx.y + i * blockDim.y;
+    rows[i] = r < n_rows ? s_idx[a.dw + r] : -1;
+  }
+  for (int c0 = threadIdx.x * VEC; c0 < a.dw; c0 += blockDim.x * VEC) {
+    int cols[VEC];
+    if constexpr (VEC == 4) {
+      const int4 c4 = *reinterpret_cast<const int4*>(s_idx + c0);
+      cols[0] = c4.x;
+      cols[1] = c4.y;
+      cols[2] = c4.z;
+      cols[3] = c4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        cols[j] = c0 + j < a.dw ? s_idx[c0 + j] : -1;
+      }
+    }
+    // every gather of this thread first, then the tails and stores
+    float v[RPT][VEC];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const T* src = frame + static_cast<int64_t>(rows[i]) * a.w;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        v[i][j] = (rows[i] >= 0 && cols[j] >= 0)
+                      ? sanitize(__ldg(src + cols[j]))
+                      : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = threadIdx.y + i * blockDim.y;
+      if (r >= n_rows) continue;
+      float* dst =
+          a.out + (static_cast<int64_t>(b) * a.dh + row0 + r) * a.dw + c0;
+      // streaming stores: the crop is not read again here, and its lines
+      // should not push the frames' lines out of L2 (PERF.md)
+      if constexpr (VEC == 4) {
+        __stcs(reinterpret_cast<float4*>(dst),
+               make_float4(tail(v[i][0]), tail(v[i][1]), tail(v[i][2]),
+                           tail(v[i][3])));
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          if (c0 + j < a.dw) __stcs(dst + j, tail(v[i][j]));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, int RPT, bool kComputed>
+int launch_shape(const Args& a, int b, cudaStream_t s) {
+  const int cols = (a.dw + VEC - 1) / VEC;
+  const int tx = cols < g_threads ? cols : g_threads;
+  const int ty = g_threads / tx;
+  const int tile = ty * RPT;
+  const dim3 grid(b, (a.dh + tile - 1) / tile);
+  const size_t smem = static_cast<size_t>(a.dw + tile) * sizeof(int);
+  crop_warp_kernel<T, VEC, RPT, kComputed><<<grid, dim3(tx, ty), smem, s>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC, bool kComputed>
+int launch_vec(const Args& a, int b, cudaStream_t s) {
+  switch (g_rows_per_thread) {
+    case 1: return launch_shape<T, VEC, 1, kComputed>(a, b, s);
+    case 2: return launch_shape<T, VEC, 2, kComputed>(a, b, s);
+    case 4: return launch_shape<T, VEC, 4, kComputed>(a, b, s);
+    case 8: return launch_shape<T, VEC, 8, kComputed>(a, b, s);
+    case 16: return launch_shape<T, VEC, 16, kComputed>(a, b, s);
+    default: return -1;
+  }
+}
+
+// The 16-byte store needs dw % 4 == 0 and a 16-byte aligned output.
+template <typename T, bool kComputed>
+int launch_type(const Args& a, int b, cudaStream_t s) {
+  const bool vec4 =
+      a.dw % 4 == 0 && (reinterpret_cast<uintptr_t>(a.out) & 15u) == 0;
+  return vec4 ? launch_vec<T, 4, kComputed>(a, b, s)
+              : launch_vec<T, 1, kComputed>(a, b, s);
+}
+
+template <bool kComputed>
+int launch(int frame_dtype, const Args& a, int b, void* stream) {
+  if (g_threads == 0 || b <= 0 || a.dh <= 0 || a.dw <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (frame_dtype) {
+    case 0: return launch_type<float, kComputed>(a, b, s);
+    case 1: return launch_type<uint16_t, kComputed>(a, b, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// frame_dtype: 0 = float32, 1 = uint16.  Returns cudaGetLastError() after
-// the launch (0 on success); -1 for an unknown frame_dtype.
+// Rows per thread (1, 2, 4, 8 or 16) and threads per block (a multiple of
+// 32, at most 512) for later launches.  Returns 0, or -1 if either is not
+// allowed (and changes nothing).
+extern "C" int lsps_warp_set_block(int rows_per_thread, int threads) {
+  const bool rpt_ok = rows_per_thread == 1 || rows_per_thread == 2 ||
+                      rows_per_thread == 4 || rows_per_thread == 8 ||
+                      rows_per_thread == 16;
+  if (!rpt_ok || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return -1;
+  g_rows_per_thread = rows_per_thread;
+  g_threads = threads;
+  return 0;
+}
+
+// frame_dtype: 0 = float32, 1 = uint16.  Each entry returns
+// cudaGetLastError() after the launch (0 on success); -1 for an unknown
+// frame_dtype, an empty batch or crop, or before lsps_warp_set_block.
+
+// Indices and tail parameters read from memory: iy (b, dh), ix (b, dw)
+// int32, -1 where invalid; params (b, 4) float32.
 extern "C" int lsps_warp_normalize(const void* frames, int frame_dtype,
                                    const void* iy, const void* ix,
                                    const void* params, void* out, int b,
                                    int h, int w, int dh, int dw,
                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (frame_dtype) {
-    case 0:
-      return launch<float>(frames, iy, ix, params, out, b, h, w, dh, dw, s);
-    case 1:
-      return launch<uint16_t>(frames, iy, ix, params, out, b, h, w, dh, dw,
-                              s);
-    default:
-      return -1;
-  }
+  Args a = {};
+  a.frames = frames;
+  a.iy = static_cast<const int32_t*>(iy);
+  a.ix = static_cast<const int32_t*>(ix);
+  a.params = static_cast<const float*>(params);
+  a.out = static_cast<float*>(out);
+  a.h = h;
+  a.w = w;
+  a.dh = dh;
+  a.dw = dw;
+  return launch<false>(frame_dtype, a, b, stream);
+}
+
+// Indices, tail parameters and the crop affine computed from coms (b, 3)
+// and cubes (b, 3) float32.  fx, fy are the focal lengths and rfx, rfy
+// their reciprocals, each rounded to float32 on the host; Ms (b, 3, 3).
+extern "C" int lsps_crop_normalize(const void* frames, int frame_dtype,
+                                   const void* coms, const void* cubes,
+                                   float fx, float fy, float rfx, float rfy,
+                                   void* out, void* Ms, int b, int h, int w,
+                                   int dh, int dw, void* stream) {
+  Args a = {};
+  a.frames = frames;
+  a.coms = static_cast<const float*>(coms);
+  a.cubes = static_cast<const float*>(cubes);
+  a.fx = fx;
+  a.fy = fy;
+  a.rfx = rfx;
+  a.rfy = rfy;
+  a.Ms = static_cast<float*>(Ms);
+  a.out = static_cast<float*>(out);
+  a.h = h;
+  a.w = w;
+  a.dh = dh;
+  a.dw = dw;
+  return launch<true>(frame_dtype, a, b, stream);
 }

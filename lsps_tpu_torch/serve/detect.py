@@ -16,7 +16,7 @@ outside Pallas), batched over frames instead of vmapped:
 Frames where no slice qualifies get a zero CoM.  As in the JAX package,
 division by the constant ``steps`` is a multiplication by its float32
 reciprocal and ``a * b + c`` one fused multiply-add (see
-``serve/preprocess.py``).  The masked sums are float32 reductions, whose
+``ops/kernels/warp.py``).  The masked sums are float32 reductions, whose
 order differs from XLA's, so CoMs agree with the JAX package to a
 tolerance, not bit for bit.
 """
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from lsps_tpu_torch.serve.preprocess import _recip, com_to_bounds, fma
+from lsps_tpu_torch.ops.kernels.warp import _recip, com_to_bounds, fma
 
 FIRST_SLICE = 5  # the nearest slices are skipped
 

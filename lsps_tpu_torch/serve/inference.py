@@ -2,9 +2,10 @@
 
 Counterpart of ``lsps_tpu/serve/inference.py:PoseEstimator``: crop ->
 normalize -> ``dis.regress_b`` -> ``vae.decode`` -> denormalize.  The crop
-warp runs in the ``warp_normalize`` CUDA kernel; the conv trunk and the
-MLP decode are PyTorch convs and matmuls, as they were XLA convs and dots
-in the JAX package.  Outputs are torch tensors on the estimator's device.
+and normalize run in one launch of the ``crop_normalize`` CUDA kernel,
+index math included; the conv trunk and the MLP decode are PyTorch convs
+and matmuls, as they were XLA convs and dots in the JAX package.  Outputs
+are torch tensors on the estimator's device.
 """
 
 from __future__ import annotations

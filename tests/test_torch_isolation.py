@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or ``lsps_tpu``.  Checked in a fresh
 interpreter, since this test process already holds JAX.  Also holds the
-kernel wrappers (the warp and the four norm kernels) to their contract:
-CPU tensors run the plain version, a launch counter exists and only kernel
-launches move it, other devices raise.
+kernel wrappers (the two warp entries and the four norm kernels) to their
+contract: CPU tensors run the plain version, a launch counter exists and
+only kernel launches move it, other devices raise.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -69,6 +70,62 @@ def test_other_devices_raise():
     frames, iy, ix, par = (t.to("meta") for t in _inputs())
     with pytest.raises(ValueError, match="meta"):
         W.warp_normalize(frames, iy, ix, par)
+
+
+def _crop_inputs(device="cpu"):
+    rs = np.random.RandomState(2)
+    frames = torch.from_numpy(rs.uniform(0, 1000, (2, 40, 50))
+                              .astype(np.float32))
+    coms = torch.tensor([[25.0, 20.0, 600.0], [0.0, 0.0, 0.0]])
+    cubes = torch.full((2, 3), 300.0)
+    return tuple(t.to(device) for t in (frames, coms, cubes))
+
+
+def test_crop_cpu_tensors_take_the_plain_version():
+    args = _crop_inputs()
+    before = W.crop_normalize.launches
+    crops, Ms = W.crop_normalize(*args, 588.0, 587.0, (16, 12))
+    want, want_M = W.crop_normalize_reference(*args, 588.0, 587.0, (16, 12))
+    assert crops.shape == (2, 12, 16) and torch.equal(crops, want)
+    assert torch.equal(Ms.isnan(), want_M.isnan())
+    assert torch.equal(Ms.nan_to_num(), want_M.nan_to_num())
+    assert isinstance(W.crop_normalize.launches, int)
+    assert W.crop_normalize.launches == before
+
+
+def test_crop_other_devices_raise():
+    with pytest.raises(ValueError, match="meta"):
+        W.crop_normalize(*_crop_inputs("meta"), 588.0, 587.0)
+
+
+_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
+            "float": "c_float"}
+
+
+def _c_entries(src):
+    """{name: [ctypes type name per parameter]} of each ``extern "C"``
+    function of a CUDA source."""
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        types = []
+        for p in params.split(","):
+            ctype = " ".join(p.split()[:-1]).replace(" *", "*")
+            types.append(_C_TYPES[ctype])
+        entries[name] = types
+    return entries
+
+
+def test_warp_entries_match_the_wrapper_signatures():
+    """Each entry of warp.cu (the loaded-index and the computed-index
+    warp, the block-shape setter) takes what its ctypes signature
+    passes."""
+    from lsps_tpu_torch.ops.kernels import build
+
+    entries = _c_entries((build.CSRC / "warp.cu").read_text())
+    assert set(entries) == {"lsps_warp_normalize", "lsps_crop_normalize",
+                            "lsps_warp_set_block"}
+    for name, argtypes in W._SIGNATURES.items():
+        assert entries[name] == [t.__name__ for t in argtypes], name
 
 
 def test_kernel_source_and_build_flags():

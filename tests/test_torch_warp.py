@@ -4,8 +4,8 @@ On the CPU ``lsps_tpu_torch.serve.preprocess.crop_normalize_batch`` runs
 the plain version of the warp kernel; its crops and crop affines must be
 bit-equal to ``lsps_tpu``'s einsum lowering and to its Pallas kernel in
 interpret mode, edge cases included.  The CUDA kernel itself is held
-against the plain version on the card (``test_cuda_kernel_bit_equal``,
-skipped without one, and ``chip_smoke.py``).
+against the plain versions on the card (``test_cuda_*``, skipped without
+one, and ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -18,7 +18,9 @@ import jax.numpy as jnp
 from lsps_tpu.data.camera import Camera
 from lsps_tpu.ops.pallas.warp import crop_normalize_batch_pallas
 from lsps_tpu.serve.preprocess_jax import crop_normalize_batch, crop_transform
-from lsps_tpu_torch.ops.kernels.warp import (warp_normalize,
+from lsps_tpu_torch.ops.kernels.warp import (crop_normalize,
+                                             crop_normalize_reference,
+                                             warp_normalize,
                                              warp_normalize_reference)
 from lsps_tpu_torch.serve import preprocess as P
 
@@ -61,35 +63,67 @@ def _edge_frames():
     return frames, coms, np.full((4, 3), 300.0, np.float32)
 
 
-def _port(frames, coms, cubes):
+def _zero_com_frames():
+    """A failed detection: a hand in the frame, CoM (0, 0, 0).  The crop
+    bounds are then infinite and M holds NaN; the crop is all far plane."""
+    frames, coms, cubes = _blob_frames(b=2, seed=5)
+    coms[0] = 0.0
+    return frames, coms, cubes
+
+
+CASES = {"blobs": _blob_frames, "edges": _edge_frames,
+         "zero_com": _zero_com_frames}
+
+
+def _port(frames, coms, cubes, dsize=(128, 128)):
     crops, Ms = P.crop_normalize_batch(torch.from_numpy(frames),
                                        torch.from_numpy(coms),
                                        torch.from_numpy(cubes),
-                                       CAM.fx, CAM.fy)
+                                       CAM.fx, CAM.fy, dsize)
     return crops.numpy(), Ms.numpy()
 
 
-def _jax(frames, coms, cubes, pallas=False):
+def _jax(frames, coms, cubes, pallas=False, dsize=(128, 128)):
     args = (jnp.asarray(frames), jnp.asarray(coms), jnp.asarray(cubes),
             CAM.fx, CAM.fy)
     if pallas:
-        out = crop_normalize_batch_pallas(*args, interpret=True)
+        out = crop_normalize_batch_pallas(*args, dsize=dsize, interpret=True)
     else:
-        out = crop_normalize_batch(*args, warp="einsum")
+        out = crop_normalize_batch(*args, dsize=dsize, warp="einsum")
     return tuple(np.asarray(o) for o in out)
 
 
-@pytest.mark.parametrize("case", ["blobs", "edges"])
+def _same_bits_nan_aware(a, b):
+    """Equal NaN masks, and bit-equal everywhere else (-0.0 != 0.0)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    ok = ~np.isnan(a)
+    np.testing.assert_array_equal(a[ok].view(np.int32), b[ok].view(np.int32))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("pallas", [False, True], ids=["einsum", "pallas"])
 def test_crops_bit_equal_to_jax(case, pallas):
-    frames, coms, cubes = (_blob_frames() if case == "blobs"
-                           else _edge_frames())
+    frames, coms, cubes = CASES[case]()
     crops, Ms = _port(frames, coms, cubes)
     ref_crops, ref_Ms = _jax(frames, coms, cubes, pallas=pallas)
     assert crops.shape == (len(frames), 128, 128)
     np.testing.assert_array_equal(crops, ref_crops)
-    np.testing.assert_array_equal(Ms, ref_Ms)
+    _same_bits_nan_aware(Ms, ref_Ms)
     assert np.all(np.isfinite(crops))
+    if case == "zero_com":
+        assert np.isnan(Ms[0]).any() and np.all(crops[0] == 1.0)
+
+
+def test_crops_bit_equal_to_jax_any_dsize():
+    """A crop whose width is not a multiple of 4 (the kernel's scalar
+    path on the card) and is not square, against the JAX einsum route."""
+    frames, coms, cubes = _edge_frames()
+    crops, Ms = _port(frames, coms, cubes, dsize=(90, 60))
+    ref_crops, ref_Ms = _jax(frames, coms, cubes, dsize=(90, 60))
+    assert crops.shape == (len(frames), 60, 90)
+    np.testing.assert_array_equal(crops, ref_crops)
+    _same_bits_nan_aware(Ms, ref_Ms)
 
 
 def test_uint16_frames_equal_float32():
@@ -184,13 +218,52 @@ def test_reference_matches_direct_gather():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_crop_normalize_reference_is_indices_then_warp():
+    """The plain version of the computed-index entry is crop_indices
+    followed by the plain warp, and the CPU path of crop_normalize_batch."""
+    frames, coms, cubes = (torch.from_numpy(a) for a in _zero_com_frames())
+    crops, Ms = crop_normalize_reference(frames, coms, cubes, CAM.fx, CAM.fy)
+    want_M, iy, ix, par = P.crop_indices(coms, cubes, CAM.fx, CAM.fy, (H, W))
+    assert torch.equal(crops, warp_normalize_reference(frames, iy, ix, par))
+    _same_bits_nan_aware(Ms.numpy(), want_M.numpy())
+    got, got_M = P.crop_normalize_batch(frames, coms, cubes, CAM.fx, CAM.fy)
+    assert torch.equal(got, crops)
+    _same_bits_nan_aware(got_M.numpy(), Ms.numpy())
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def test_cuda_crop_normalize_bit_equal():
+    """The computed-index entry against its plain version on the card:
+    crops and M (NaN-aware), float32 and uint16 frames, the edge cases and
+    a failed detection, one launch per call (needs a CUDA device and
+    nvcc)."""
+    dev = _cuda()
+    frames, coms, cubes = (np.concatenate(a) for a in
+                           zip(_edge_frames(), _zero_com_frames()))
+    c, cu = torch.from_numpy(coms).to(dev), torch.from_numpy(cubes).to(dev)
+    for f in (frames, np.round(np.nan_to_num(frames)).astype(np.uint16)):
+        ft = torch.from_numpy(f).to(dev)
+        for dsize in ((128, 128), (90, 60)):
+            before = crop_normalize.launches
+            got, got_M = crop_normalize(ft, c, cu, CAM.fx, CAM.fy, dsize)
+            torch.cuda.synchronize()
+            assert crop_normalize.launches == before + 1
+            want, want_M = crop_normalize_reference(ft, c, cu, CAM.fx,
+                                                    CAM.fy, dsize)
+            assert torch.equal(got, want)
+            _same_bits_nan_aware(got_M.cpu().numpy(), want_M.cpu().numpy())
+
+
 def test_cuda_kernel_bit_equal():
     """The CUDA kernel against its plain version on the card, float32 and
     uint16 frames (needs a CUDA device and nvcc)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = _cuda()
     frames, coms, cubes = _edge_frames()
-    dev = torch.device("cuda")
     Ms, iy, ix, par = P.crop_indices(torch.from_numpy(coms).to(dev),
                                      torch.from_numpy(cubes).to(dev),
                                      CAM.fx, CAM.fy, (H, W))
