@@ -14,18 +14,20 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    affines bit for bit (NaN-aware: a failed detection gives NaN in M), on
    the edge frames and a zero-CoM frame and at the batch sizes of the
    serving path (1, 32, 256), for float32 and whole-millimetre uint16
-   frames; check that ``crop_normalize_batch`` is one kernel launch; time
-   both entries beside their bounds and plain versions (device time from
-   torch.profiler, per-call time from CUDA events); then the same checks
-   over 20000 random CoMs and cubes on frames of distinct depths, and a
-   sweep of the kernel's block shapes at batch 1, 32 and 256;
+   frames, at 128 x 128 and at 90 x 60 (the kernel's scalar path); check
+   that ``crop_normalize_batch`` is one kernel launch; time both entries
+   beside their bounds and plain versions (device time from
+   torch.profiler with the frames warm in L2, per-call time from CUDA
+   events), and ``crop_normalize`` also with the frames cold in L2; then
+   the same checks over 20000 random CoMs and cubes on frames of distinct
+   depths;
 3. serve ``PoseEstimator.predict_frames`` and ``predict_raw`` at the widths
    of ``exps/nnyu.yaml`` (seeded random weights) for requests of 1 and 32
    frames, with every kernel's launch count set to 0 just before and read
    just after; ``crop_normalize`` must launch once per call and
-   ``warp_normalize`` not at all.  The joints are held against a plain
-   route on the card (the reference warp + the same modules, TF32 off)
-   and against the estimator on the CPU;
+   ``warp_normalize`` (counted too) not at all.  The joints are held
+   against a plain route on the card (the reference warp + the same
+   modules, TF32 off) and against the estimator on the CPU;
 4. time ``predict_frames`` (ms per call at batch 1, frames/s at 32 and
    256, float32 and bf16 trunk; kernels per call and the device's idle
    share), beside the same call on the index route (the crop indices in
@@ -61,7 +63,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -81,8 +85,8 @@ WARP_INDEX_FLOPS = 8        # per output row or column: sub, div, add,
 WARP_BATCHES = (1, 32, 256)
 RANDOM_COMS = 20000         # as tests/test_torch_warp.py draws them
 RANDOM_CHUNK = 2000
-SWEEP_ROWS = (1, 2, 4, 8, 16)
-SWEEP_THREADS = (128, 256, 512)
+SCALAR_DSIZE = (90, 60)     # dw % 4 != 0: the kernel's scalar path
+COLD_BYTES = 256 * 2 ** 20  # frames rotated over for a cold-L2 timing
 SERVE_BATCHES = (1, 32)
 TIMING_BATCHES = (1, 32, 256)
 JOINTS_PLAIN_MM = 1e-3      # kernel route vs plain route, same modules
@@ -230,6 +234,22 @@ def profile_kernels(torch, fn, iters=10):
     return by_name, sum(ms for ms, _ in by_name.values()), wall
 
 
+def kernel_device_ms(torch, fn, symbol, iters=10):
+    """Device ms per call of ``fn``'s kernels whose name holds ``symbol``
+    (torch.profiler); 0.0 if the profiler saw none."""
+    by_name, _, _ = profile_kernels(torch, fn, iters)
+    return sum(ms for k, (ms, _) in by_name.items() if symbol in k)
+
+
+def rotating(frames):
+    """(n, an endless iterator over n copies of ``frames``): n at least 4
+    and the copies together at least COLD_BYTES, so that a call taking its
+    frames in turn finds them last read more than L2's 50 MB ago, as in
+    serving, where every call brings new frames."""
+    n = max(4, math.ceil(COLD_BYTES / frames.nbytes))
+    return n, itertools.cycle([frames.clone() for _ in range(n)])
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -292,13 +312,13 @@ def abs_err(a, b):
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
-def check_warp(torch, WK, cam, ft, c, cu, what):
+def check_warp(torch, WK, cam, ft, c, cu, what, dsize=(128, 128)):
     """Both warp entries on one batch against their plain versions on the
     card, crops and M bit for bit (NaN-aware); returns (the plain indices,
     the largest |kernel - plain|)."""
-    Ms, iy, ix, par = WK.crop_indices(c, cu, cam.fx, cam.fy, (H, W))
+    Ms, iy, ix, par = WK.crop_indices(c, cu, cam.fx, cam.fy, (H, W), dsize)
     loaded = WK.warp_normalize(ft, iy, ix, par)
-    crops, got_M = WK.crop_normalize(ft, c, cu, cam.fx, cam.fy)
+    crops, got_M = WK.crop_normalize(ft, c, cu, cam.fx, cam.fy, dsize)
     torch.cuda.synchronize()
     want = WK.warp_normalize_reference(ft, iy, ix, par)
     for name, got, ref in (("warp_normalize crops", loaded, want),
@@ -321,8 +341,7 @@ def time_kernel(torch, kernel, plain, symbol, iters):
     plain_call_ms = cuda_ms(torch, plain, iters)
     # a call timed back to back also holds the host's launch cost, which
     # is larger than the kernel at these sizes
-    by_name, _, _ = profile_kernels(torch, kernel)
-    dev_ms = sum(ms for k, (ms, _) in by_name.items() if symbol in k)
+    dev_ms = kernel_device_ms(torch, kernel, symbol)
     _, plain_dev_ms, _ = profile_kernels(torch, plain)
     return {"ms": dev_ms or call_ms, "call_ms": call_ms,
             "plain_ms": plain_dev_ms or plain_call_ms,
@@ -341,8 +360,8 @@ def bound(nbytes, flops):
 def phase_warp(torch, dev, cam):
     """Both warp entries vs their plain versions, bit for bit (crops and M,
     NaN-aware), on the edge frames and at the serving batch sizes, float32
-    and uint16 frames, then timed; returns (timing rows, max |err| by
-    entry)."""
+    and uint16 frames, 128 x 128 and SCALAR_DSIZE crops, then timed;
+    returns (timing rows, max |err|)."""
     from lsps_tpu_torch.ops.kernels import warp as WK
     from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
 
@@ -357,7 +376,10 @@ def phase_warp(torch, dev, cam):
             ft = torch.from_numpy(f).to(dev)
             (iy, ix, par), err = check_warp(torch, WK, cam, ft, c, cu,
                                             f"B={b} {kind}")
-            max_err = max(max_err, err)
+            _, scalar_err = check_warp(torch, WK, cam, ft, c, cu,
+                                       f"B={b} {kind} {SCALAR_DSIZE}",
+                                       SCALAR_DSIZE)
+            max_err = max(max_err, err, scalar_err)
             if kind == "u16":
                 ff = ft.to(torch.float32)
                 if not (torch.equal(WK.warp_normalize(ft, iy, ix, par),
@@ -402,13 +424,25 @@ def phase_warp(torch, dev, cam):
                        "sector_bytes": sector_bytes(esize, iy_np, ix_np)
                        + pixels * 4}
                 row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                if computed:
+                    n, turn = rotating(ft)
+                    row["cold_ms"] = kernel_device_ms(
+                        torch, lambda: WK.crop_normalize(
+                            next(turn), c, cu, cam.fx, cam.fy),
+                        "crop_warp_kernel", max(20, n))
+                    del turn
+                    row["cold_share_of_bound"] = (row["bound_ms"]
+                                                  / row["cold_ms"])
                 rows.append(row)
                 log(f"{entry} B={b} {kind}: {row['ms']:.5f} ms device, "
                     f"bound {row['bound_ms']:.5f} ms "
                     f"({row['share_of_bound']:.0%}), plain "
-                    f"{row['plain_ms']:.5f} ms")
+                    f"{row['plain_ms']:.5f} ms"
+                    + (f", L2 cold {row['cold_ms']:.5f} ms" if computed
+                       else ""))
         log(f"warp B={b}: both entries bit-equal to their plain versions, "
-            f"crops and M (float32 and uint16 frames)")
+            f"crops and M (float32 and uint16 frames, {SCALAR_DSIZE} "
+            f"crops too)")
     return rows, max_err
 
 
@@ -452,38 +486,6 @@ def phase_warp_random(torch, dev, cam):
     return max_err
 
 
-def phase_warp_sweep(torch, dev, cam):
-    """Device ms of crop_normalize (float32 frames) at every block shape
-    the kernel takes, at the serving batch sizes; the shape is restored
-    after."""
-    from lsps_tpu_torch.ops.kernels import warp as WK
-
-    inputs = {}
-    for b in WARP_BATCHES:
-        frames, coms, cubes = warp_batch(b, seed=100 + b)
-        inputs[b] = tuple(torch.from_numpy(a).to(dev)
-                          for a in (frames, coms, cubes))
-    rows = []
-    prev = WK.BLOCK_SHAPE
-    try:
-        for rpt in SWEEP_ROWS:
-            for threads in SWEEP_THREADS:
-                WK.set_block_shape(rpt, threads)
-                row = {"rows_per_thread": rpt, "threads": threads}
-                for b, (ft, c, cu) in inputs.items():
-                    by_name, _, _ = profile_kernels(torch, functools.partial(
-                        WK.crop_normalize, ft, c, cu, cam.fx, cam.fy),
-                        iters=20)
-                    row[f"B{b}_ms"] = sum(ms for k, (ms, _) in
-                                          by_name.items()
-                                          if "crop_warp_kernel" in k)
-                rows.append(row)
-                log("sweep " + json.dumps(row))
-    finally:
-        WK.set_block_shape(*prev)
-    return rows
-
-
 def seeded_state_dict(hyp, seed, nets=("dis", "vae")):
     import torch
     from torch import nn
@@ -523,7 +525,8 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     """The main path: requests through the entry points, float32 and
     whole-mm uint16 frames, launch counts read around them; then the
     joints against the plain route on the card and against the CPU.  TF32
-    is off for the whole phase."""
+    is off for the whole phase.  Returns (the launches of ``kernels``, those
+    of the loaded-index entry, the worst joint gap to the plain route)."""
     from lsps_tpu_torch.ops.kernels import warp as WK
     from lsps_tpu_torch.serve.inference import PoseEstimator
     from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
@@ -546,18 +549,19 @@ def phase_serve(torch, dev, hyp, sd, kernels):
                       est.predict_raw(u16, cubes))
         torch.cuda.synchronize()
         launches = {name: k.launches for name, k in kernels.items()}
-        log(f"main path launches: {launches}")
+        loaded_launches = WK.warp_normalize.launches
+        log(f"main path launches: {launches}, warp_normalize "
+            f"{loaded_launches}")
         for name, n in launches.items():
             if n == 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"main path")
         # four calls per request, each one crop_normalize launch; the
         # loaded-index entry is off the main path
-        if (launches["crop_normalize"] != 4 * len(reqs)
-                or WK.warp_normalize.launches != 0):
+        if launches["crop_normalize"] != 4 * len(reqs) or loaded_launches:
             raise AssertionError(f"crop launches {launches}, warp_normalize "
-                                 f"{WK.warp_normalize.launches}: the main "
-                                 f"path gives {4 * len(reqs)} and 0")
+                                 f"{loaded_launches}: the main path gives "
+                                 f"{4 * len(reqs)} and 0")
 
         cpu_est = PoseEstimator(hyp, sd, device="cpu")
         worst = 0.0
@@ -607,7 +611,7 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = prev
-    return launches, worst
+    return launches, loaded_launches, worst
 
 
 def index_route(frames, coms, cubes, fx, fy, dsize=(128, 128)):
@@ -858,11 +862,9 @@ def phase_norm_timing(torch, dev):
                 if name == "in_act_forward":
                     ident = functools.partial(N.in_act_forward, x, None)
                     lib = functools.partial(F.instance_norm, x, eps=N.EPS)
-                    by_name, _, _ = profile_kernels(torch, ident)
-                    row["ms_slope_none"] = sum(
-                        ms for k, (ms, _) in by_name.items()
-                        if NORM_SYMBOL[name] in k) or cuda_ms(torch, ident,
-                                                              100)
+                    row["ms_slope_none"] = kernel_device_ms(
+                        torch, ident, NORM_SYMBOL[name]) or cuda_ms(
+                            torch, ident, 100)
                     _, lib_dev_ms, _ = profile_kernels(torch, lib)
                     row["library_ms"] = lib_dev_ms or cuda_ms(torch, lib,
                                                               100)
@@ -1215,9 +1217,8 @@ def main() -> int:
     phase_build()
     warp_rows, warp_err = phase_warp(torch, dev, cam)
     warp_err = max(warp_err, phase_warp_random(torch, dev, cam))
-    sweep_rows = phase_warp_sweep(torch, dev, cam)
     sd = seeded_state_dict(hyp, seed=0)
-    launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
+    launches, loaded_launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
     timing = phase_timing(torch, dev, hyp, sd)
     norm_errs = phase_norm(torch, dev)
     log("norm max |kernel - plain|: float32 "
@@ -1230,7 +1231,6 @@ def main() -> int:
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
 
     log("warp timing " + json.dumps(warp_rows))
-    log("warp sweep " + json.dumps(sweep_rows))
     log("serve timing " + json.dumps(timing))
     log("norm timing " + json.dumps(norm_rows))
     log("train timing " + json.dumps(train_rows))
@@ -1261,10 +1261,13 @@ def main() -> int:
                         for b in WARP_BATCHES},
         "bound_ms_by_batch": {b: warp_row("crop_normalize", b)["bound_ms"]
                               for b in WARP_BATCHES},
+        # the frames cold in L2, as in serving
+        "cold_ms_by_batch": {b: warp_row("crop_normalize", b)["cold_ms"]
+                             for b in WARP_BATCHES},
         # the same kernel with its indices read from memory: the
         # gather-only check, off the main path
         "loaded_indices": {"name": "warp_normalize",
-                           "launches_on_main_path": 0,
+                           "launches_on_main_path": loaded_launches,
                            **{k: loaded_row[k] for k in keys}},
     }]
     for name, replaces in NORM_REPLACES.items():

@@ -34,15 +34,16 @@
 // grid.x, tiles on grid.y).  Its first row of threads computes (or loads)
 // the frame's source columns and the tile's source rows once, into shared
 // memory, with the tail's two constant outputs (near plane, far plane);
-// then, to keep enough bytes in flight for HBM, each thread covers VEC = 4
-// adjacent columns (one 16-byte store) and RPT rows and issues all of its
-// RPT * VEC gathers before the tails and the streaming stores.  An invalid
-// row or column issues no load, and only a sample inside the z-range pays
-// for a division.  The rows per thread and the threads per block are set
-// at run time (lsps_warp_set_block) from the sweep recorded in PERF.md.
-// The frames' 32-byte sectors that the gathers touch hold about twice the
-// source pixels the bound counts: a crop samples every 1.5-2 source pixels
-// of a row, and DRAM serves whole sectors.
+// then each thread covers VEC = 4 adjacent columns (one 16-byte store) and
+// RPT rows and issues all of its RPT * VEC gathers before the tails and
+// the stores.  An invalid row or column issues no load, and only a sample
+// inside the z-range pays for a division.  The rows per thread, the
+// threads per block and the kind of store are compile-time constants from
+// the sweep recorded in PERF.md (warp_sweep.py at the repository root
+// rebuilds this file with others through the LSPS_WARP_* macros below).
+// The frames' 32-byte sectors that the gathers touch, with the crop, are
+// about 1.4 times the bytes the bound counts: a crop samples every 1.5-2
+// source pixels of a row, and DRAM serves whole sectors.
 //
 // Arithmetic is IEEE throughout, so the results are bit-equal to the plain
 // PyTorch version whatever flags the file is built with.  Do not build with
@@ -51,13 +52,37 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The sweep's parameters.  Best or within 0.5 % of the best at batch 1, 32
+// and 256 with the frames cold in L2: 1 row per thread, 256 threads, plain
+// stores (streaming stores won 12 % with the frames warm, 3 % or less, or
+// lost, cold).
+#ifndef LSPS_WARP_ROWS_PER_THREAD
+#define LSPS_WARP_ROWS_PER_THREAD 1
+#endif
+#ifndef LSPS_WARP_THREADS
+#define LSPS_WARP_THREADS 256
+#endif
+#ifndef LSPS_WARP_STREAMING_STORES
+#define LSPS_WARP_STREAMING_STORES 0
+#endif
+
 namespace {
 
-constexpr int kMaxThreads = 512;
+constexpr int RPT = LSPS_WARP_ROWS_PER_THREAD;  // rows per thread
+constexpr int kThreads = LSPS_WARP_THREADS;      // threads per block
+static_assert(RPT >= 1, "rows per thread");
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "threads per block");
 
-// Set by lsps_warp_set_block before the first launch; 0 = not set.
-int g_rows_per_thread = 0;
-int g_threads = 0;
+// Plain, or streaming (st.global.cs: the crop's lines first to be evicted
+// from L2).
+template <typename V>
+__device__ __forceinline__ void store(V* dst, V v) {
+#if LSPS_WARP_STREAMING_STORES
+  __stcs(dst, v);
+#else
+  *dst = v;
+#endif
+}
 
 __device__ __forceinline__ float sanitize(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u ? 0.0f : v;
@@ -181,8 +206,8 @@ __device__ __forceinline__ Tail make_tail(float zstart, float zend,
 // the frame's dw source columns and the tile's source rows into shared
 // memory (computed from the CoM and cube, or loaded), and the tail's
 // constants; then every thread gathers.
-template <typename T, int VEC, int RPT, bool kComputed>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int VEC, bool kComputed>
+__global__ void __launch_bounds__(kThreads)
 crop_warp_kernel(const Args a) {
   extern __shared__ __align__(16) int s_idx[];  // ix[0:dw], tile's iy
   __shared__ Tail s_tail;
@@ -260,45 +285,30 @@ crop_warp_kernel(const Args a) {
       if (r >= n_rows) continue;
       float* dst =
           a.out + (static_cast<int64_t>(b) * a.dh + row0 + r) * a.dw + c0;
-      // streaming stores: the crop is not read again here, and its lines
-      // should not push the frames' lines out of L2 (PERF.md)
       if constexpr (VEC == 4) {
-        __stcs(reinterpret_cast<float4*>(dst),
-               make_float4(tail(v[i][0]), tail(v[i][1]), tail(v[i][2]),
-                           tail(v[i][3])));
+        store(reinterpret_cast<float4*>(dst),
+              make_float4(tail(v[i][0]), tail(v[i][1]), tail(v[i][2]),
+                          tail(v[i][3])));
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          if (c0 + j < a.dw) __stcs(dst + j, tail(v[i][j]));
+          if (c0 + j < a.dw) store(dst + j, tail(v[i][j]));
         }
       }
     }
   }
 }
 
-template <typename T, int VEC, int RPT, bool kComputed>
-int launch_shape(const Args& a, int b, cudaStream_t s) {
+template <typename T, int VEC, bool kComputed>
+int launch_vec(const Args& a, int b, cudaStream_t s) {
   const int cols = (a.dw + VEC - 1) / VEC;
-  const int tx = cols < g_threads ? cols : g_threads;
-  const int ty = g_threads / tx;
+  const int tx = cols < kThreads ? cols : kThreads;
+  const int ty = kThreads / tx;
   const int tile = ty * RPT;
   const dim3 grid(b, (a.dh + tile - 1) / tile);
   const size_t smem = static_cast<size_t>(a.dw + tile) * sizeof(int);
-  crop_warp_kernel<T, VEC, RPT, kComputed><<<grid, dim3(tx, ty), smem, s>>>(
-      a);
+  crop_warp_kernel<T, VEC, kComputed><<<grid, dim3(tx, ty), smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int VEC, bool kComputed>
-int launch_vec(const Args& a, int b, cudaStream_t s) {
-  switch (g_rows_per_thread) {
-    case 1: return launch_shape<T, VEC, 1, kComputed>(a, b, s);
-    case 2: return launch_shape<T, VEC, 2, kComputed>(a, b, s);
-    case 4: return launch_shape<T, VEC, 4, kComputed>(a, b, s);
-    case 8: return launch_shape<T, VEC, 8, kComputed>(a, b, s);
-    case 16: return launch_shape<T, VEC, 16, kComputed>(a, b, s);
-    default: return -1;
-  }
 }
 
 // The 16-byte store needs dw % 4 == 0 and a 16-byte aligned output.
@@ -312,7 +322,7 @@ int launch_type(const Args& a, int b, cudaStream_t s) {
 
 template <bool kComputed>
 int launch(int frame_dtype, const Args& a, int b, void* stream) {
-  if (g_threads == 0 || b <= 0 || a.dh <= 0 || a.dw <= 0) return -1;
+  if (b <= 0 || a.dh <= 0 || a.dw <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (frame_dtype) {
     case 0: return launch_type<float, kComputed>(a, b, s);
@@ -323,23 +333,9 @@ int launch(int frame_dtype, const Args& a, int b, void* stream) {
 
 }  // namespace
 
-// Rows per thread (1, 2, 4, 8 or 16) and threads per block (a multiple of
-// 32, at most 512) for later launches.  Returns 0, or -1 if either is not
-// allowed (and changes nothing).
-extern "C" int lsps_warp_set_block(int rows_per_thread, int threads) {
-  const bool rpt_ok = rows_per_thread == 1 || rows_per_thread == 2 ||
-                      rows_per_thread == 4 || rows_per_thread == 8 ||
-                      rows_per_thread == 16;
-  if (!rpt_ok || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
-    return -1;
-  g_rows_per_thread = rows_per_thread;
-  g_threads = threads;
-  return 0;
-}
-
 // frame_dtype: 0 = float32, 1 = uint16.  Each entry returns
 // cudaGetLastError() after the launch (0 on success); -1 for an unknown
-// frame_dtype, an empty batch or crop, or before lsps_warp_set_block.
+// frame_dtype or an empty batch or crop.
 
 // Indices and tail parameters read from memory: iy (b, dh), ix (b, dw)
 // int32, -1 where invalid; params (b, 4) float32.

@@ -6,9 +6,12 @@ Each source is compiled on first use with
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/`` at the root of the checkout (listed in ``.gitignore``),
-keyed by a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  The sources have a plain C interface;
-no PyTorch header is compiled.  Nothing here runs at import.
+keyed by a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  ``compile_source`` also
+takes preprocessor definitions, for a variant of a source built beside the
+one the package loads (``warp_sweep.py`` builds the crop warp's block
+shapes so).  The sources have a plain C interface; no PyTorch header is
+compiled.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -47,23 +50,29 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                          + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def compile_source(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path.  Safe to run in several processes: the
-    library is written to a temporary name and renamed into place."""
-    lib = library_path(name)
+def compile_source(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``,
+    such as ``"LSPS_WARP_THREADS=256"``) unless its library is already
+    built; returns the library's path.  Safe to run in several processes:
+    the library is written to a temporary name and renamed into place."""
+    lib = library_path(name, defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:

@@ -56,13 +56,7 @@ _SIGNATURES = {
     # dw, stream
     "lsps_crop_normalize": [_P, _I, _P, _P, _F, _F, _F, _F, _P, _P, _I, _I,
                             _I, _I, _I, _P],
-    # rows per thread, threads per block
-    "lsps_warp_set_block": [_I, _I],
 }
-# Rows per thread and threads per block of the kernel, from the sweep in
-# PERF.md (batch 1, 32 and 256 on an H100).
-BLOCK_SHAPE = (2, 128)
-_block = BLOCK_SHAPE
 
 
 @functools.cache
@@ -74,21 +68,7 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    if lib.lsps_warp_set_block(*_block) != 0:
-        raise ValueError(f"block shape {_block} refused by the kernel")
     return lib
-
-
-def set_block_shape(rows_per_thread: int, threads: int) -> Tuple[int, int]:
-    """Rows per thread (1, 2, 4, 8 or 16) and threads per block (a
-    multiple of 32, at most 512) for later launches; returns the previous
-    pair.  For sweeps: the serving path runs at ``BLOCK_SHAPE``."""
-    global _block
-    if _library().lsps_warp_set_block(rows_per_thread, threads) != 0:
-        raise ValueError(f"block shape ({rows_per_thread}, {threads}) "
-                         f"refused by the kernel")
-    prev, _block = _block, (rows_per_thread, threads)
-    return prev
 
 
 # ---------------------------------------------------------------------------

@@ -117,13 +117,11 @@ def _c_entries(src):
 
 def test_warp_entries_match_the_wrapper_signatures():
     """Each entry of warp.cu (the loaded-index and the computed-index
-    warp, the block-shape setter) takes what its ctypes signature
-    passes."""
+    warp) takes what its ctypes signature passes."""
     from lsps_tpu_torch.ops.kernels import build
 
     entries = _c_entries((build.CSRC / "warp.cu").read_text())
-    assert set(entries) == {"lsps_warp_normalize", "lsps_crop_normalize",
-                            "lsps_warp_set_block"}
+    assert set(entries) == {"lsps_warp_normalize", "lsps_crop_normalize"}
     for name, argtypes in W._SIGNATURES.items():
         assert entries[name] == [t.__name__ for t in argtypes], name
 
