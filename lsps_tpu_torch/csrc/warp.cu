@@ -37,10 +37,10 @@
 // then each thread covers VEC = 4 adjacent columns (one 16-byte store) and
 // RPT rows and issues all of its RPT * VEC gathers before the tails and
 // the stores.  An invalid row or column issues no load, and only a sample
-// inside the z-range pays for a division.  The rows per thread, the
-// threads per block and the kind of store are compile-time constants from
-// the sweep recorded in PERF.md (warp_sweep.py at the repository root
-// rebuilds this file with others through the LSPS_WARP_* macros below).
+// inside the z-range pays for a division.  The rows per thread and the
+// threads per block are compile-time constants from the sweep recorded in
+// PERF.md (warp_sweep.py at the repository root rebuilds this file with
+// others through the LSPS_WARP_* macros below).
 // The frames' 32-byte sectors that the gathers touch, with the crop, are
 // about 1.4 times the bytes the bound counts: a crop samples every 1.5-2
 // source pixels of a row, and DRAM serves whole sectors.
@@ -52,18 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The sweep's parameters.  Best or within 0.5 % of the best at batch 1, 32
-// and 256 with the frames cold in L2: 1 row per thread, 256 threads, plain
-// stores (streaming stores won 12 % with the frames warm, 3 % or less, or
-// lost, cold).
+// The sweep's parameters: 1 row per thread and 256 threads per block are
+// the best, or within 0.5 % of it, at batch 1, 32 and 256 with the frames
+// cold in L2.
 #ifndef LSPS_WARP_ROWS_PER_THREAD
 #define LSPS_WARP_ROWS_PER_THREAD 1
 #endif
 #ifndef LSPS_WARP_THREADS
 #define LSPS_WARP_THREADS 256
-#endif
-#ifndef LSPS_WARP_STREAMING_STORES
-#define LSPS_WARP_STREAMING_STORES 0
 #endif
 
 namespace {
@@ -72,17 +68,6 @@ constexpr int RPT = LSPS_WARP_ROWS_PER_THREAD;  // rows per thread
 constexpr int kThreads = LSPS_WARP_THREADS;      // threads per block
 static_assert(RPT >= 1, "rows per thread");
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "threads per block");
-
-// Plain, or streaming (st.global.cs: the crop's lines first to be evicted
-// from L2).
-template <typename V>
-__device__ __forceinline__ void store(V* dst, V v) {
-#if LSPS_WARP_STREAMING_STORES
-  __stcs(dst, v);
-#else
-  *dst = v;
-#endif
-}
 
 __device__ __forceinline__ float sanitize(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u ? 0.0f : v;
@@ -286,13 +271,13 @@ crop_warp_kernel(const Args a) {
       float* dst =
           a.out + (static_cast<int64_t>(b) * a.dh + row0 + r) * a.dw + c0;
       if constexpr (VEC == 4) {
-        store(reinterpret_cast<float4*>(dst),
-              make_float4(tail(v[i][0]), tail(v[i][1]), tail(v[i][2]),
-                          tail(v[i][3])));
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(tail(v[i][0]), tail(v[i][1]), tail(v[i][2]),
+                        tail(v[i][3]));
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          if (c0 + j < a.dw) store(dst + j, tail(v[i][j]));
+          if (c0 + j < a.dw) dst[j] = tail(v[i][j]);
         }
       }
     }

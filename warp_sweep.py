@@ -4,8 +4,7 @@
 
 Run from the root of the repository, on a machine with a CUDA card, nvcc
 and PyTorch built for CUDA.  Builds ``lsps_tpu_torch/csrc/warp.cu`` once
-for each block shape (rows per thread x threads per block) and each kind
-of store (streaming ``st.global.cs`` or plain), through its
+for each block shape (rows per thread x threads per block), through its
 ``LSPS_WARP_*`` macros, all builds started together; checks each build's
 ``crop_normalize`` bit-equal to the plain version at batch 32; then times
 it on float32 frames (``chip_smoke.warp_batch``) at batch 1, 32 and 256:
@@ -19,8 +18,8 @@ the kernel's device ms from torch.profiler,
   frames.
 
 Prints one JSON line per build and the card's name and power limit.  The
-package builds the kernel with the shape and store the sweep chose
-(PERF.md holds the table).
+package builds the kernel with the shape the sweep chose (PERF.md holds
+the table).
 """
 
 from __future__ import annotations
@@ -37,18 +36,15 @@ from chip_smoke import (WARP_BATCHES, gpu_name_and_power, kernel_device_ms,
 
 ROWS = (1, 2, 4, 8, 16)
 THREADS = (128, 256, 512)
-STREAMING = (1, 0)
 
 
 def variants():
-    return [(rpt, threads, st) for st in STREAMING for rpt in ROWS
-            for threads in THREADS]
+    return [(rpt, threads) for rpt in ROWS for threads in THREADS]
 
 
-def defines(rpt, threads, st):
+def defines(rpt, threads):
     return (f"LSPS_WARP_ROWS_PER_THREAD={rpt}",
-            f"LSPS_WARP_THREADS={threads}",
-            f"LSPS_WARP_STREAMING_STORES={st}")
+            f"LSPS_WARP_THREADS={threads}")
 
 
 def load(path):
@@ -94,10 +90,9 @@ def main() -> int:
     want, want_M = WK.crop_normalize_reference(frames, coms, cubes, cam.fx,
                                                cam.fy)
 
-    for (rpt, threads, st), path in zip(variants(), paths):
+    for (rpt, threads), path in zip(variants(), paths):
         lib = load(path)
-        row = {"rows_per_thread": rpt, "threads": threads,
-               "streaming_stores": bool(st)}
+        row = {"rows_per_thread": rpt, "threads": threads}
         with unittest.mock.patch.object(WK, "_library", lambda: lib):
             crops, Ms = WK.crop_normalize(frames, coms, cubes, cam.fx,
                                           cam.fy)
