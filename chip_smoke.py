@@ -48,12 +48,30 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    their plain versions within that one block), and one tiny-width step
    on the card against the CPU (TF32 off): losses, each gradient before
    the optimizer, and the updated parameters;
-7. time each norm kernel beside its bound, its plain version and
-   ``F.instance_norm``, and ``pretrain_update`` (batch 8 and 32) and
+7. hold the training augment (``data/augment.py``) on the card against
+   the same function on the CPU, bit for bit, at batch 32 with rotations,
+   float32 and uint16 sources, and time it;
+8. drive this slice's training paths at the widths of ``exps/nnyu.yaml``
+   (batch 32), each with the norm kernels' launch counts set to 0 just
+   before and read just after: ``pretrain_update_raw`` against the
+   augment + ``pretrain_update`` from the same state and noise (losses
+   1e-4, gradients 1e-2 beside the raw step's own run-to-run floor) with
+   launches equal to the image step's; a ``compute_dtype: bfloat16``
+   step (every IN + LeakyReLU launch on bfloat16 planes, losses within
+   the JAX package's bfloat16 criterion of the float32 step, parameters,
+   moments and outputs float32); a ``remat`` step (peak memory with and
+   without, losses within 1e-4, the joint pass recomputed in the
+   counts); ``pretrain_scan(raw=True)`` at K=4 against 4 single raw steps
+   (cuDNN deterministic); then save, resume a fresh trainer, and hold the
+   next step of both;
+9. time each norm kernel beside its bound, its plain version and
+   ``F.instance_norm``; ``pretrain_update`` (batch 8 and 32) and
    ``vae_update``: ms per step, device time, idle share, top kernels,
-   peak memory;
-8. print the ``kernels`` line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   peak memory; ``pretrain_update_raw`` beside ``pretrain_update`` at
+   batch 8 and 32 in float32 and bfloat16, and ``vae_scan`` K=8 beside 8
+   ``vae_update`` calls at batch 64;
+10. print the ``kernels`` line, the card's name and power limit, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
 or without the package beside it, it exits non-zero at once.
@@ -210,10 +228,21 @@ def host_ms(torch, fn, iters, warmup=3):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_kernels(torch, fn, iters=10):
+def profile_kernels(torch, fn, iters=10, tries=3):
     """Device time by kernel name over ``iters`` calls of ``fn``, from
     torch.profiler: ({name: (ms per call, launches per call)}, device ms
-    per call, wall ms per call)."""
+    per call, wall ms per call).  A trace that holds no device event at
+    all is taken again, up to ``tries`` times: the profiler on the card's
+    machine has returned an empty trace for a call that launches a
+    kernel, which the same call traced in every other run."""
+    for _ in range(tries):
+        by_name, dev_ms, wall = _profile_once(torch, fn, iters)
+        if by_name:
+            break
+    return by_name, dev_ms, wall
+
+
+def _profile_once(torch, fn, iters):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -235,10 +264,18 @@ def profile_kernels(torch, fn, iters=10):
 
 
 def kernel_device_ms(torch, fn, symbol, iters=10):
-    """Device ms per call of ``fn``'s kernels whose name holds ``symbol``
-    (torch.profiler); 0.0 if the profiler saw none."""
+    """Device ms of one launch of the kernel whose name holds ``symbol``,
+    for an ``fn`` that launches it once per call: the mean over the
+    launches the trace holds (torch.profiler), which stays right where the
+    profiler drops some of them (seen on the card's machine: a trace of
+    10 calls holding fewer launches); 0.0 if it saw none."""
     by_name, _, _ = profile_kernels(torch, fn, iters)
-    return sum(ms for k, (ms, _) in by_name.items() if symbol in k)
+    hits = [v for k, v in by_name.items() if symbol in k]
+    launches = sum(n for _, n in hits)
+    if hits and round(launches, 6) != 1:
+        log(f"profiler: {launches * iters:.0f} launches of {symbol} in a "
+            f"trace of {iters} calls")
+    return sum(ms for ms, _ in hits) / launches if launches else 0.0
 
 
 def rotating(frames):
@@ -531,11 +568,7 @@ def phase_serve(torch, dev, hyp, sd, kernels):
     from lsps_tpu_torch.serve.inference import PoseEstimator
     from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
 
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with tf32_off(torch):
         est = PoseEstimator(hyp, sd, device=dev)
         reqs = serve_requests()
         for k in (*kernels.values(), WK.warp_normalize):
@@ -608,9 +641,6 @@ def phase_serve(torch, dev, hyp, sd, kernels):
                 f"float32; kernel vs plain route <= {worst:.3g} mm (tol "
                 f"{JOINTS_PLAIN_MM}); card vs CPU {cpu_err:.3g} mm (tol "
                 f"{JOINTS_CPU_MM}); crops card == CPU")
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = prev
     return launches, loaded_launches, worst
 
 
@@ -935,6 +965,37 @@ def in_res_fused(N, value):
         N.set_in_res_fused(prev)
 
 
+@contextlib.contextmanager
+def tf32_off(torch, deterministic=False):
+    """TF32 off (and with ``deterministic``, cuDNN's deterministic
+    algorithms) within the block."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def norm_launches(N):
+    return {name: k.launches for name, k in N.KERNELS.items()}
+
+
+def zero_norm_launches(N):
+    for k in N.KERNELS.values():
+        k.launches = 0
+
+
 def record_grads(trainer):
     """From now on, keep a copy of the gradients each optimizer of
     ``trainer`` is given, by parameter name (None where a head was not
@@ -1025,8 +1086,7 @@ def phase_train(torch, dev, hyp, sd):
     poses = torch.from_numpy(np.random.RandomState(12).uniform(
         -0.3, 0.3, (hyp["batch_size_pose"], reg)).astype(np.float32)).to(dev)
     trainer = LSPSTrainer(hyp, sd, device=dev, seed=0)
-    for k in N.KERNELS.values():
-        k.launches = 0
+    zero_norm_launches(N)
     with in_res_fused(N, False):
         mets = [trainer.vae_update(poses)[0]]
         mets += [trainer.pretrain_update(*batch, with_viz=False)[0]
@@ -1035,7 +1095,7 @@ def phase_train(torch, dev, hyp, sd):
     with in_res_fused(N, True):
         mets.append(trainer.pretrain_update(*batch, with_viz=False)[0])
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in N.KERNELS.items()}
+    launches = norm_launches(N)
     log(f"train path launches: {launches}")
     joint, one_way = in_act_counts(hyp["gen"])
     per_step_fwd, per_step_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
@@ -1053,11 +1113,7 @@ def phase_train(torch, dev, hyp, sd):
         f"pretrain_update: losses finite; IN+LeakyReLU {per_step_fwd} fwd /"
         f" {per_step_bwd} bwd per pretrain_update, as counted from the code")
 
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with tf32_off(torch):
         noise = pretrain_noise(torch, dev, b, trainer.gen.latent_ch, seed=13)
         kern = LSPSTrainer(hyp, sd, device=dev)
         again = LSPSTrainer(hyp, sd, device=dev)
@@ -1068,7 +1124,7 @@ def phase_train(torch, dev, hyp, sd):
             mk, _ = kern.pretrain_update(*batch, noise=noise, with_viz=False)
             again.pretrain_update(*batch, noise=noise, with_viz=False)
             torch.cuda.synchronize()
-            before = {name: k.launches for name, k in N.KERNELS.items()}
+            before = norm_launches(N)
             # the plain route: the wrappers bound to their plain versions
             # for this block only
             with unittest.mock.patch.multiple(N, **{
@@ -1077,7 +1133,7 @@ def phase_train(torch, dev, hyp, sd):
                 mp, _ = plain.pretrain_update(*batch, noise=noise,
                                               with_viz=False)
                 torch.cuda.synchronize()
-        if {name: k.launches for name, k in N.KERNELS.items()} != before:
+        if norm_launches(N) != before:
             raise AssertionError("a norm kernel launched on the plain route")
         floor = compare_grads(torch, ga, gk, in_fed_biases(kern),
                               "kernel route run twice")
@@ -1093,9 +1149,6 @@ def phase_train(torch, dev, hyp, sd):
             f"{STEP_DISAGREE_SHARE})")
         del kern, again, plain, gk, ga, gp
         cpu_err = phase_train_cpu(torch, dev, hyp)
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = prev
     return launches, trainer, {"route_loss_rel": loss_err,
                                "route_grad_rel": grad_err,
                                "kernel_twice_grad_rel": floor,
@@ -1157,12 +1210,7 @@ def phase_train_timing(torch, dev, hyp, trainer):
         with in_res_fused(N, False):
             ms = host_ms(torch, step, 10, warmup=2)
             by_name, dev_ms, wall = profile_kernels(torch, step, iters=3)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            step()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
+            over, peak, _ = step_peak_bytes(torch, step)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         rows.append({"update": "pretrain_update", "batch": b, "ms": ms,
                      "profiled_wall_ms": wall, "device_ms": dev_ms,
@@ -1172,7 +1220,7 @@ def phase_train_timing(torch, dev, hyp, trainer):
                      "norm_kernel_ms": sum(
                          ms_ for k, (ms_, _) in by_name.items()
                          if any(s in k for s in NORM_SYMBOL.values())),
-                     "peak_bytes_over_state": peak - base,
+                     "peak_bytes_over_state": over,
                      "peak_bytes": peak,
                      "top_kernels_ms": [[k[:70], round(v[0], 5)]
                                         for k, v in top]})
@@ -1185,6 +1233,498 @@ def phase_train_timing(torch, dev, hyp, trainer):
     rows.append({"update": "vae_update", "batch": hyp["batch_size_pose"],
                  "ms": vae_ms})
     log(f"vae_update B={hyp['batch_size_pose']}: {vae_ms:.3f} ms/step")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the fused-augment, bfloat16, remat, scan and checkpoint paths
+# ---------------------------------------------------------------------------
+
+AUG_BATCH = 32
+AUG_HW = 128
+# per output pixel: three coordinate rows (2 mul + 2 add each), 2 divides,
+# 2 add + floor, 4 compares; per source pixel the chain: ~14 (compares,
+# selects, clamp, subtract, divide)
+AUG_OPS_PER_PIXEL = 16 + 14
+SCAN_K = 4
+VAE_SCAN_K = 8
+# bfloat16 against float32 from the same state and noise: the JAX
+# package's own criterion (tests/test_bf16_training.py), 8 % relative or
+# 0.05 absolute
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.08, 0.05
+NV_VAL = 32000.0
+
+
+def rotation_dst_to_src(center, deg):
+    """(n, 3, 3) dst -> src transforms of rotations by ``deg`` about
+    ``center``, as the training augment's raw batches carry them."""
+    a = np.deg2rad(-np.asarray(deg, np.float64))
+    ca, sa = np.cos(a), np.sin(a)
+    cx, cy = center
+    fwd = np.zeros((a.shape[0], 3, 3))
+    fwd[:, 0, 0], fwd[:, 0, 1] = ca, sa
+    fwd[:, 0, 2] = (1 - ca) * cx - sa * cy
+    fwd[:, 1, 0], fwd[:, 1, 1] = -sa, ca
+    fwd[:, 1, 2] = sa * cx + (1 - ca) * cy
+    fwd[:, 2, 2] = 1.0
+    return np.linalg.inv(fwd)
+
+
+def raw_tuple(b, rs, u16):
+    """One domain's raw tuple, (src, minv, com_z, cube_z, premax, zstart,
+    zend[, vstar]): cached (b, 128, 128) crops of distinct whole-mm
+    depths inside the cube, with background, NV, premax, near and far
+    pixels; transforms rotating by up to +-180 degrees, scaling and
+    shifting; uint16 codes (code 1 -> vstar) or float32 mm."""
+    hw = AUG_HW
+    minv = rotation_dst_to_src((hw // 2, hw // 2), rs.uniform(0, 360, b))
+    minv[:, :2, :2] *= np.abs(1.0 + rs.randn(b) * 0.05)[:, None, None]
+    minv[:, :2, 2] += rs.uniform(-10, 10, (b, 2))
+    com_z = rs.uniform(650, 850, b).astype(np.float32)
+    cube_z = np.full(b, 300.0, np.float32)
+    premax = (com_z + rs.uniform(120, 160, b)).astype(np.float32)
+    ramp = rs.permutation(hw * hw).reshape(hw, hw) / (hw * hw)
+    src = np.round(com_z[:, None, None] - 140 + 280 * ramp).astype(
+        np.float32)
+    src[:, :12] = 0.0
+    src[:, 20:24] = NV_VAL
+    src[:, 40:44] = np.round(premax)[:, None, None]
+    premax = np.round(premax).astype(np.float32)
+    src[:, 60:64] = (com_z - 200)[:, None, None].round()
+    src[:, 80:84] = (com_z + 200)[:, None, None].round()
+    raw = (src, minv, com_z, cube_z, premax, com_z - cube_z / 2,
+           com_z + cube_z / 2)
+    if u16:
+        codes = src.astype(np.uint16)
+        codes[:, 100:102] = 1
+        raw = (codes, *raw[1:], rs.uniform(500, 520, b).astype(np.float32))
+    return raw
+
+
+def raw_step_batch(b, seed, reg_dim, u16=True):
+    """(raw_a, labels_a, raw_b, labels_b) for one fused-augment step, as
+    numpy arrays (what the data loader hands the trainer)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        out.append(raw_tuple(b, rs, u16))
+        out.append(rs.uniform(-0.3, 0.3, (b, reg_dim)).astype(np.float32))
+    return out
+
+
+def aug_bytes(raw):
+    """Bytes the augment must move: the source crops and per-sample
+    parameters read once, the float32 crops written once."""
+    n = raw[0].size
+    per_sample = 9 * 4 + 5 * 4 + (4 if len(raw) == 8 else 0)
+    return n * raw[0].itemsize + raw[0].shape[0] * per_sample + n * 4
+
+
+def phase_augment(torch, dev):
+    """The training augment on the card against the same function on the
+    CPU, bit for bit, at batch 32 with rotations, for float32 and uint16
+    sources; then, with its inputs on the card, its device time, kernels
+    per call and host ms per call."""
+    from lsps_tpu_torch.data import augment as A
+
+    rows = []
+    for kind in ("f32", "u16"):
+        raw = raw_tuple(AUG_BATCH, np.random.RandomState(40), kind == "u16")
+        card = A.recrop_normalize_batch(*raw, device=dev)
+        torch.cuda.synchronize()
+        cpu = A.recrop_normalize_batch(*raw)
+        if not same_bits(torch, card.cpu(), cpu):
+            raise AssertionError(f"augment {kind}: card != CPU, max |diff| "
+                                 f"{abs_err(card.cpu(), cpu)}")
+        if card.shape != (AUG_BATCH, AUG_HW, AUG_HW) or \
+                not bool(card.isfinite().all()):
+            raise AssertionError(f"augment {kind}: bad crops")
+        on_dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in raw)
+        call = functools.partial(A.recrop_normalize_batch, *on_dev)
+        by_name, dev_ms, wall = profile_kernels(torch, call, iters=10)
+        row = {"frames": kind, "batch": AUG_BATCH, "device_ms": dev_ms,
+               "host_ms": host_ms(torch, call, 50),
+               "kernels_per_call": sum(n for _, n in by_name.values()),
+               **bound(aug_bytes(raw),
+                       AUG_OPS_PER_PIXEL * raw[0].size)}
+        rows.append(row)
+        log(f"augment B={AUG_BATCH} {kind}: card == CPU bit for bit; "
+            f"{dev_ms:.4f} ms device in {row['kernels_per_call']:.0f} "
+            f"kernels, {row['host_ms']:.3f} ms per call, bound "
+            f"{row['bound_ms']:.5f} ms")
+    return rows
+
+
+def phase_raw_step(torch, dev, hyp, sd):
+    """pretrain_update_raw (batch 32, uint16 raw tuples from the host)
+    against augment + pretrain_update from the same state and noise, TF32
+    off, with the raw step run twice for the floor; the norm launches of
+    the raw step, each read around its own step, equal the image
+    step's."""
+    from lsps_tpu_torch.data import augment as A
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    b, reg = hyp["batch_size"], hyp["vae"]["input_dim"]
+    raw_a, la, raw_b, lb = raw_step_batch(b, 41, reg)
+    with tf32_off(torch), in_res_fused(N, False):
+        raw_t, again, image_t = (LSPSTrainer(hyp, sd, device=dev)
+                                 for _ in range(3))
+        noise = pretrain_noise(torch, dev, b, raw_t.gen.latent_ch, seed=42)
+        gr, ga, gi = (record_grads(t) for t in (raw_t, again, image_t))
+        zero_norm_launches(N)
+        mr, outs = raw_t.pretrain_update_raw(raw_a, la, raw_b, lb,
+                                             noise=noise)
+        torch.cuda.synchronize()
+        raw_launches = norm_launches(N)
+        again.pretrain_update_raw(raw_a, la, raw_b, lb, noise=noise,
+                                  with_viz=False)
+        ia = A.recrop_normalize_batch(*raw_a, device=dev)[..., None]
+        ib = A.recrop_normalize_batch(*raw_b, device=dev)[..., None]
+        zero_norm_launches(N)
+        mi, _ = image_t.pretrain_update(ia, la, ib, lb, noise=noise,
+                                        with_viz=False)
+        torch.cuda.synchronize()
+        image_launches = norm_launches(N)
+    log(f"raw step launches {raw_launches}, image step {image_launches}")
+    if raw_launches != image_launches or not raw_launches[
+            "in_act_forward"] or not raw_launches["in_act_backward"]:
+        raise AssertionError("pretrain_update_raw's norm launches differ "
+                             "from the image step's")
+    gen_outs, oa, ob = outs
+    if not (torch.equal(oa, ia) and torch.equal(ob, ib)
+            and oa.shape == (b, AUG_HW, AUG_HW, 1) and len(gen_outs) == 8):
+        raise AssertionError("pretrain_update_raw's crops differ from the "
+                             "augment's")
+    floor = compare_grads(torch, ga, gr, in_fed_biases(raw_t),
+                          "raw step run twice")
+    start = {k: v.float() for k, v in sd.items()}
+    loss_err, grad_err, share = compare_steps(
+        torch, start, raw_t, image_t, mr, mi, gr, gi, hyp["lr"],
+        "pretrain_update_raw vs augment + pretrain_update")
+    log(f"pretrain_update_raw B={b}: vs augment + pretrain_update losses <= "
+        f"{loss_err:.3g} relative (tol {STEP_LOSS_RTOL}), gradients <= "
+        f"{grad_err:.3g} (tol {STEP_GRAD_RTOL}; the raw step run twice: "
+        f"{floor:.3g}), {share:.3g} of parameter elements apart")
+    return raw_launches, {"loss_rel": loss_err, "grad_rel": grad_err,
+                          "twice_grad_rel": floor, "param_share": share}
+
+
+def phase_bf16(torch, dev, hyp, sd):
+    """compute_dtype bfloat16 pretrain_update (batch 32) against the
+    float32 step from the same state and noise, TF32 off: every norm
+    kernel launch of the step sees bfloat16 planes; losses within the JAX
+    package's bf16 criterion; parameters and moments float32 at rest,
+    outputs float32."""
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    b, reg = hyp["batch_size"], hyp["vae"]["input_dim"]
+    batch = train_batch(torch, dev, b, seed=43, reg_dim=reg)
+    # the dtype of the planes each IN + LeakyReLU kernel launch is given
+    seen = {"lsps_in_act_fwd": set(), "lsps_in_act_bwd": set()}
+    launch = N._launch
+
+    def spy(name, x, *args):
+        if name in seen:
+            seen[name].add(x.dtype)
+        return launch(name, x, *args)
+
+    with tf32_off(torch), in_res_fused(N, False):
+        f32_t = LSPSTrainer(hyp, sd, device=dev)
+        bf_t = LSPSTrainer(dict(hyp, compute_dtype="bfloat16"), sd,
+                           device=dev)
+        noise = pretrain_noise(torch, dev, b, f32_t.gen.latent_ch, seed=44)
+        m32, _ = f32_t.pretrain_update(*batch, noise=noise, with_viz=False)
+        zero_norm_launches(N)
+        with unittest.mock.patch.object(N, "_launch", spy):
+            mbf, outs = bf_t.pretrain_update(*batch, noise=noise)
+        torch.cuda.synchronize()
+        launches = norm_launches(N)
+    log(f"bf16 step launches {launches}, dtypes seen "
+        f"{ {k: sorted(map(str, v)) for k, v in seen.items()} }")
+    for name, sym in (("in_act_forward", "lsps_in_act_fwd"),
+                      ("in_act_backward", "lsps_in_act_bwd")):
+        if not launches[name] or seen[sym] != {torch.bfloat16}:
+            raise AssertionError(f"bf16 step: {name} launched "
+                                 f"{launches[name]} times on {seen[sym]}")
+    rels = {}
+    for k, v32 in m32.items():
+        a, w = float(mbf[k]), float(v32)
+        if not np.isfinite(a):
+            raise AssertionError(f"bf16 step: {k} = {a}")
+        rels[k] = abs(a - w) / max(abs(w), 1e-12)
+        if abs(a - w) > max(BF16_LOSS_RTOL * abs(w), BF16_LOSS_ATOL):
+            raise AssertionError(f"bf16 step: {k} {a} vs float32 {w}")
+    if any(p.dtype != torch.float32 for p in bf_t.nets.parameters()) or \
+            any(m.dtype != torch.float32 for opt in (bf_t.dis_opt,
+                                                     bf_t.gen_opt)
+                for m in opt.mu + opt.nu) or \
+            any(o.dtype != torch.float32 for o in outs):
+        raise AssertionError("bf16 step: a parameter, moment or output is "
+                             "not float32")
+    log(f"pretrain_update B={b} bfloat16: every IN+LeakyReLU launch on "
+        f"bfloat16; relative gap to the float32 step by metric "
+        f"{ {k: float(f'{v:.3g}') for k, v in rels.items()} } (tol "
+        f"{BF16_LOSS_RTOL} relative or {BF16_LOSS_ATOL} absolute); "
+        f"parameters, moments and outputs float32")
+    return launches, {"rel_vs_f32": rels}
+
+
+def step_peak_bytes(torch, fn):
+    """(peak device bytes allocated during ``fn`` above what was allocated
+    before it, the peak itself, ``fn()``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak - base, peak, out
+
+
+def phase_remat(torch, dev, hyp, sd):
+    """One batch-32 pretrain_update with and without remat from the same
+    state and noise, TF32 off: peak memory of each, the losses (the plain
+    step run twice for the floor), and the recompute in the norm launches
+    (one more joint pass forward)."""
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    b, reg = hyp["batch_size"], hyp["vae"]["input_dim"]
+    batch = train_batch(torch, dev, b, seed=45, reg_dim=reg)
+    res = {}
+    with tf32_off(torch), in_res_fused(N, False):
+        for tag, h in (("plain", hyp), ("again", hyp),
+                       ("remat", dict(hyp, remat=True))):
+            t = LSPSTrainer(h, sd, device=dev)
+            noise = pretrain_noise(torch, dev, b, t.gen.latent_ch, seed=46)
+            zero_norm_launches(N)
+            peak, _, (met, _) = step_peak_bytes(
+                torch, lambda: t.pretrain_update(*batch, noise=noise,
+                                                 with_viz=False))
+            res[tag] = (peak, met, norm_launches(N))
+            del t, noise
+    joint, _ = in_act_counts(hyp["gen"])
+    want = dict(res["plain"][2])
+    want["in_act_forward"] += joint
+    if res["remat"][2] != want:
+        raise AssertionError(f"remat launches {res['remat'][2]}, the "
+                             f"recompute gives {want}")
+
+    def loss_rel(ma, mb):
+        return max(abs(float(ma[k]) - float(mb[k]))
+                   / max(abs(float(mb[k])), 1e-12) for k in ma)
+
+    floor = loss_rel(res["again"][1], res["plain"][1])
+    err = loss_rel(res["remat"][1], res["plain"][1])
+    if err > STEP_LOSS_RTOL:
+        raise AssertionError(f"remat losses {err:.3g} apart")
+    out = {"peak_bytes_plain": res["plain"][0],
+           "peak_bytes_remat": res["remat"][0], "loss_rel": err,
+           "twice_loss_rel": floor}
+    log(f"remat B={b}: peak {res['plain'][0] / 2**30:.3f} GiB without, "
+        f"{res['remat'][0] / 2**30:.3f} GiB with; losses {err:.3g} apart "
+        f"(tol {STEP_LOSS_RTOL}; the plain step run twice: {floor:.3g}); "
+        f"launches {res['remat'][2]} (the joint pass recomputed)")
+    return res["remat"][2], out
+
+
+def phase_scan_ckpt(torch, dev, hyp, sd, raw_launches):
+    """pretrain_scan(raw=True) at K=4 against 4 single raw steps (TF32 off,
+    cuDNN deterministic); then save the scanned trainer at nnyu width,
+    resume a fresh trainer from it (optimizers included), and hold the
+    next step of both against each other."""
+    import shutil
+
+    from lsps_tpu_torch.data.augment import stack_raw
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    b, reg = hyp["batch_size"], hyp["vae"]["input_dim"]
+    steps = [raw_step_batch(b, 50 + k, reg) for k in range(SCAN_K + 1)]
+    save_dir = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    prefix = str(save_dir / "pre")
+    with tf32_off(torch, deterministic=True), in_res_fused(N, False):
+        scan_t, single_t = (LSPSTrainer(hyp, sd, device=dev)
+                            for _ in range(2))
+        noises = [pretrain_noise(torch, dev, b, scan_t.gen.latent_ch,
+                                 seed=60 + k) for k in range(SCAN_K + 1)]
+        stacked = [stack_raw([s[0] for s in steps[:SCAN_K]]),
+                   np.stack([s[1] for s in steps[:SCAN_K]]),
+                   stack_raw([s[2] for s in steps[:SCAN_K]]),
+                   np.stack([s[3] for s in steps[:SCAN_K]])]
+        zero_norm_launches(N)
+        mets, outs = scan_t.pretrain_scan(*stacked, raw=True,
+                                          noise=noises[:SCAN_K],
+                                          with_viz=False)
+        torch.cuda.synchronize()
+        scan_launches = norm_launches(N)
+        singles = [single_t.pretrain_update_raw(*steps[k], noise=noises[k],
+                                                with_viz=False)[0]
+                   for k in range(SCAN_K)]
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, v in mets.items():
+            if tuple(v.shape) != (SCAN_K,):
+                raise AssertionError(f"pretrain_scan: {k} {tuple(v.shape)}")
+            for i, m in enumerate(singles):
+                rel = abs(float(v[i]) - float(m[k])) / max(abs(float(m[k])),
+                                                           1e-12)
+                worst = max(worst, rel)
+                if rel > STEP_LOSS_RTOL:
+                    raise AssertionError(f"pretrain_scan step {i}: {k} "
+                                         f"{float(v[i])} vs {float(m[k])}")
+        if outs is not None:
+            raise AssertionError("pretrain_scan with_viz=False gave outputs")
+        if scan_launches != {k: SCAN_K * n for k, n in raw_launches.items()}:
+            raise AssertionError(f"pretrain_scan launches {scan_launches}, "
+                                 f"{SCAN_K} raw steps give "
+                                 f"{SCAN_K} x {raw_launches}")
+        param_gap = max(float((a - c).abs().max()) for a, c in zip(
+            scan_t.nets.state_dict().values(),
+            single_t.nets.state_dict().values()))
+        log(f"pretrain_scan K={SCAN_K} B={b}: metrics ({SCAN_K},), within "
+            f"{worst:.3g} of {SCAN_K} single raw steps, parameters "
+            f"{param_gap:.3g} apart; launches {scan_launches}")
+
+        # checkpoint: save the scanned trainer, resume a fresh one
+        scan_t.save(prefix, SCAN_K - 1)
+        scan_t.save_vae(prefix, SCAN_K - 1, 1.0)
+        fresh = LSPSTrainer(hyp, seeded_state_dict(
+            hyp, seed=9, nets=("dis", "gen", "vae", "map")), device=dev)
+        it = fresh.resume(prefix, load_opt=True)
+        if it != SCAN_K or not fresh.load_vae(prefix, 1.0):
+            raise AssertionError(f"resume found iteration {it}")
+        for opt_a, opt_b in ((scan_t.gen_opt, fresh.gen_opt),
+                             (scan_t.dis_opt, fresh.dis_opt)):
+            if (opt_b.count, opt_b.sched_count) != (opt_a.count,
+                                                    opt_a.sched_count) \
+                    or not all(torch.equal(x, y) for x, y in zip(
+                        opt_a.mu + opt_a.nu, opt_b.mu + opt_b.nu)):
+                raise AssertionError("resumed optimizer != saved")
+        if not all(torch.equal(x, y) for x, y in zip(
+                scan_t.nets.parameters(), fresh.nets.parameters())):
+            raise AssertionError("resumed parameters != saved")
+        start = {k: v.float().cpu()
+                 for k, v in scan_t.nets.state_dict().items()}
+        ga, gb = record_grads(scan_t), record_grads(fresh)
+        ma, _ = scan_t.pretrain_update_raw(*steps[SCAN_K],
+                                           noise=noises[SCAN_K],
+                                           with_viz=False)
+        mb, _ = fresh.pretrain_update_raw(*steps[SCAN_K],
+                                          noise=noises[SCAN_K],
+                                          with_viz=False)
+        torch.cuda.synchronize()
+    files = sorted(p.name for p in save_dir.iterdir())
+    shutil.rmtree(save_dir)
+    loss_err, grad_err, share = compare_steps(
+        torch, start, fresh, scan_t, mb, ma, gb, ga, hyp["lr"],
+        "resumed vs saved trainer")
+    log(f"checkpoint: saved {files}; resumed at iteration {it}, parameters "
+        f"and optimizers bit-equal; next step losses <= {loss_err:.3g} "
+        f"relative, gradients <= {grad_err:.3g}, {share:.3g} of parameter "
+        f"elements apart")
+    return scan_launches, {"scan_loss_rel": worst, "scan_param_gap": param_gap,
+                           "resume_loss_rel": loss_err,
+                           "resume_grad_rel": grad_err}
+
+
+def profiled_step(torch, fn, symbols=None):
+    """Device ms, idle share, kernels per call and (for ``symbols``) the
+    device ms and launches per call of those kernels, from torch.profiler
+    over 3 calls of ``fn``."""
+    by_name, dev_ms, wall = profile_kernels(torch, fn, iters=3)
+    row = {"device_ms": dev_ms, "profiled_wall_ms": wall,
+           "device_idle_share": max(0.0, 1 - dev_ms / wall),
+           "kernels_per_call": sum(n for _, n in by_name.values())}
+    for name, sym in (symbols or {}).items():
+        hits = [v for k, v in by_name.items() if sym in k]
+        row[f"{name}_ms"] = sum(v[0] for v in hits)
+        row[f"{name}_launches"] = sum(v[1] for v in hits)
+    return row
+
+
+def timed_in_turns(torch, fns, iters, symbols=None):
+    """(name, callable) pairs timed on the host clock in turns, forwards
+    then backwards (a, b, c, c, b, a): ``ms`` is the mean of each one's
+    two runs, ``ms_runs`` the runs (the host clock drifts within a call);
+    then each profiled (``profiled_step``).  Returns a row per name."""
+    runs = {name: [] for name, _ in fns}
+    for name, fn in (*fns, *reversed(fns)):
+        runs[name].append(host_ms(torch, fn, iters, warmup=2))
+    return {name: {"ms": sum(runs[name]) / 2, "ms_runs": runs[name],
+                   **profiled_step(torch, fn, symbols)}
+            for name, fn in fns}
+
+
+def phase_raw_timing(torch, dev, hyp, sd):
+    """pretrain_update_raw (uint16 raw tuples from the host) beside
+    pretrain_update (crops already on the card) and pretrain_update_raw
+    on raw tuples already on the card, at batch 8 and 32, float32 and
+    bfloat16 compute; vae_scan K=8 beside 8 vae_update at batch 64; each
+    set timed in turns.  PyTorch's default TF32 settings, the unfused IN
+    + residual tail."""
+    from lsps_tpu_torch.data import augment as A
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    rows = []
+    reg = hyp["vae"]["input_dim"]
+    with in_res_fused(N, False):
+        for dtype, h in (("float32", hyp),
+                         ("bfloat16", dict(hyp, compute_dtype="bfloat16"))):
+            trainer = LSPSTrainer(h, sd, device=dev)
+            for b in TRAIN_BATCHES:
+                raw_a, la, raw_b, lb = raw_step_batch(b, 70 + b, reg)
+                img = (A.recrop_normalize_batch(*raw_a, device=dev)[..., None],
+                       torch.from_numpy(la).to(dev),
+                       A.recrop_normalize_batch(*raw_b, device=dev)[..., None],
+                       torch.from_numpy(lb).to(dev))
+                # the raw step once more with its inputs already on the
+                # card: no host-to-device copy (nor the stream
+                # synchronization a copy from pageable memory makes) in
+                # the step
+                on_card = [tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                 .to(dev) for a in raw) for raw in
+                           (raw_a, raw_b)]
+                timed = timed_in_turns(torch, (
+                    ("pretrain_update_raw", lambda: trainer.
+                     pretrain_update_raw(raw_a, la, raw_b, lb,
+                                         with_viz=False)),
+                    ("pretrain_update", lambda: trainer.pretrain_update(
+                        *img, with_viz=False)),
+                    ("pretrain_update_raw on card", lambda: trainer.
+                     pretrain_update_raw(on_card[0], img[1], on_card[1],
+                                         img[3], with_viz=False))),
+                    6, NORM_SYMBOL)
+                for update, row in timed.items():
+                    rows.append({"update": update, "dtype": dtype,
+                                 "batch": b, **row})
+                    log(f"{update} {dtype} B={b}: {row['ms']:.2f} ms/step "
+                        f"(runs {row['ms_runs'][0]:.2f}, "
+                        f"{row['ms_runs'][1]:.2f}), device "
+                        f"{row['device_ms']:.2f} ms, idle "
+                        f"{row['device_idle_share']:.2f}, "
+                        f"{row['kernels_per_call']:.0f} kernels")
+            del trainer
+        trainer = LSPSTrainer(hyp, sd, device=dev)
+        pb = hyp["batch_size_pose"]
+        poses = torch.from_numpy(np.random.RandomState(31).uniform(
+            -0.3, 0.3, (VAE_SCAN_K, pb, reg)).astype(np.float32)).to(dev)
+        timed = timed_in_turns(torch, (
+            ("vae_scan", lambda: trainer.vae_scan(poses)),
+            ("vae_update x8", lambda: [trainer.vae_update(poses[i])
+                                       for i in range(VAE_SCAN_K)])), 10)
+        for update, row in timed.items():
+            rows.append({"update": update, "dtype": "float32", "batch": pb,
+                         "steps": VAE_SCAN_K, **row})
+            log(f"{update} K={VAE_SCAN_K} B={pb}: {row['ms']:.2f} ms per "
+                f"{VAE_SCAN_K} steps (runs {row['ms_runs'][0]:.2f}, "
+                f"{row['ms_runs'][1]:.2f}), device {row['device_ms']:.2f} "
+                f"ms, {row['kernels_per_call']:.0f} kernels")
     return rows
 
 
@@ -1227,14 +1767,32 @@ def main() -> int:
                                  nets=("dis", "gen", "vae", "map"))
     train_launches, trainer, train_checks = phase_train(torch, dev, hyp,
                                                         train_sd)
+    aug_rows = phase_augment(torch, dev)
+    raw_launches, raw_checks = phase_raw_step(torch, dev, hyp, train_sd)
+    bf16_launches, bf16_checks = phase_bf16(torch, dev, hyp, train_sd)
+    remat_launches, remat_checks = phase_remat(torch, dev, hyp, train_sd)
+    scan_launches, scan_checks = phase_scan_ckpt(torch, dev, hyp, train_sd,
+                                                 raw_launches)
     norm_rows = phase_norm_timing(torch, dev)
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
+    del trainer
+    raw_rows = phase_raw_timing(torch, dev, hyp, train_sd)
+    path_launches = {"pretrain_update_raw": raw_launches,
+                     "pretrain_update bfloat16": bf16_launches,
+                     "pretrain_update remat": remat_launches,
+                     f"pretrain_scan raw K={SCAN_K}": scan_launches}
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
     log("norm timing " + json.dumps(norm_rows))
     log("train timing " + json.dumps(train_rows))
     log("train checks " + json.dumps(train_checks))
+    log("augment timing " + json.dumps(aug_rows))
+    log("raw, bf16 and scan timing " + json.dumps(raw_rows))
+    log("training path checks " + json.dumps(
+        {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
+         "scan_ckpt": scan_checks, "launches_by_path": path_launches,
+         "card": gpu_name_and_power()}))
 
     def warp_row(entry, b=32):
         return next(r for r in warp_rows if r["entry"] == entry
@@ -1286,6 +1844,15 @@ def main() -> int:
             "library_ms": r["library_ms"], "timed_by": r["timed_by"],
             "at": f"{tuple(r['shape'])} float32 (the batch-"
                   f"{hyp['batch_size']} training path)",
+            # launches on this slice's paths, each read around its own
+            # run, and the kernel's device ms per bfloat16 batch-32 step
+            "launches_by_path": {p: n[name]
+                                 for p, n in path_launches.items()},
+            "bf16_step_ms": next(
+                r[f"{name}_ms"] for r in raw_rows
+                if r["update"] == "pretrain_update"
+                and r["dtype"] == "bfloat16"
+                and r["batch"] == hyp["batch_size"]),
         })
     log(json.dumps({"kernels": rows}))
     log(gpu_name_and_power())

@@ -11,9 +11,10 @@ Public tensors are NHWC, as in the JAX package; the modules run NCHW
 inside.  Every ``noise`` argument is a standard-normal draw of the shared
 code's NHWC shape; where it is None (in training) it is drawn from
 ``generator``.  Noise and dropout are active only in training mode
-(``module.train()``), as ``train=True`` makes them in the JAX package.
-Dropout masks (``res_dropout_ratio > 0``) are always drawn from
-``generator``.
+(``module.train()``), as ``train=True`` makes them in the JAX package;
+``decode`` takes the JAX signature's ``train`` flag, off by default, and
+runs without dropout unless it is set.  Dropout masks
+(``res_dropout_ratio > 0``) are always drawn from ``generator``.
 """
 
 from __future__ import annotations
@@ -91,14 +92,15 @@ class _SharedGenBase(nn.Module):
 
     @staticmethod
     def _run(seq: nn.Sequential, x: torch.Tensor, noise=None,
-             generator=None) -> torch.Tensor:
+             generator=None, dropout: bool = True) -> torch.Tensor:
         """NCHW through ``seq``; residual blocks take the generator (for
-        dropout), the noise layer the draw (NHWC) or the generator."""
+        dropout, unless ``dropout`` is False), the noise layer the draw
+        (NHWC) or the generator."""
         for m in seq:
             if isinstance(m, L.GaussianNoise):
                 x = m(x, None if noise is None else _nchw(noise), generator)
             elif isinstance(m, L.ResidualBody):
-                x = m(x, generator)
+                x = m(x, generator, dropout=dropout)
             else:
                 x = m(x)
         return x
@@ -106,14 +108,18 @@ class _SharedGenBase(nn.Module):
     def _shared(self, h, noise, generator):
         return self._run(self.enc_shared, h, noise, generator)
 
-    def _decode(self, seq, out, generator):
-        return _nhwc(self._run(seq, out, generator=generator))
+    def _decode(self, seq, out, generator, dropout=True):
+        return _nhwc(self._run(seq, out, generator=generator,
+                               dropout=dropout))
 
-    def decode(self, z: torch.Tensor, generator=None):
-        """Shared latent (B, h, w, C) -> (out_a, out_b) images."""
-        out = self._run(self.dec_shared, _nchw(z), generator=generator)
-        return (self._decode(self.decode_A, out, generator),
-                self._decode(self.decode_B, out, generator))
+    def decode(self, z: torch.Tensor, generator=None, train: bool = False):
+        """Shared latent (B, h, w, C) -> (out_a, out_b) images.  Dropout
+        runs only with ``train`` (and in training mode), as in the JAX
+        package, whose trainer decodes with ``train=False``."""
+        out = self._run(self.dec_shared, _nchw(z), generator=generator,
+                        dropout=train)
+        return (self._decode(self.decode_A, out, generator, train),
+                self._decode(self.decode_B, out, generator, train))
 
     def encode(self, x_a: torch.Tensor, x_b: torch.Tensor,
                noise_a: Optional[torch.Tensor] = None,

@@ -6,6 +6,11 @@ parameter here (``weights.from_jax_params``).  Initialisation matches the
 reference's distributions: N(0, 0.02) conv kernels, PyTorch's uniform
 bound 1/sqrt(fan_in) for linear weights and for every bias.  Each
 ``reset_parameters`` takes an optional ``torch.Generator``.
+
+In bfloat16 the layers round where the JAX package's do: a conv (or
+transposed conv) is rounded to bfloat16 before its bias is added in
+bfloat16, and LeakyReLU multiplies by the slope rounded to bfloat16 (a
+weakly typed Python float there).  Other dtypes take PyTorch's own ops.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ def _uniform_(t: torch.Tensor, fan_in: int, generator=None) -> None:
     nn.init.uniform_(t, -bound, bound, generator=generator)
 
 
+def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """NCHW ``y`` plus a per-channel bias, in y's dtype."""
+    return y + bias[:, None, None]
+
+
 class Conv2d(nn.Conv2d):
     """PyTorch-parity conv: cross-correlation, symmetric padding, bias;
     ``groups`` splits the channels as ``feature_group_count`` does."""
@@ -41,6 +51,12 @@ class Conv2d(nn.Conv2d):
         fan_in = (self.in_channels // self.groups * self.kernel_size[0]
                   * self.kernel_size[1])
         _uniform_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return _add_bias(self._conv_forward(x, self.weight, None),
+                             self.bias)
+        return super().forward(x)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -58,6 +74,13 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         fan_in = self.out_channels * self.kernel_size[0] * self.kernel_size[1]
         _uniform_(self.bias, fan_in, generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return _add_bias(F.conv_transpose2d(
+                x, self.weight, None, self.stride, self.padding,
+                self.output_padding, self.groups, self.dilation), self.bias)
+        return super().forward(x)
+
 
 class Linear(nn.Linear):
     """PyTorch Linear; weight (out, in), the JAX package's (in, out)^T."""
@@ -70,7 +93,11 @@ class Linear(nn.Linear):
 def leaky_relu(x: torch.Tensor, slope: float = LEAKY_SLOPE) -> torch.Tensor:
     """``where(x >= 0, x, slope * x)``.  ``F.leaky_relu`` selects on
     ``x > 0`` instead; the two differ only at x = -0.0, where both give
-    -0.0, so they agree bit for bit."""
+    -0.0, so they agree bit for bit.  In bfloat16 the slope is rounded to
+    bfloat16 first, as the JAX package's weakly typed slope is."""
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x,
+                           x * torch.tensor(slope, dtype=torch.bfloat16))
     return F.leaky_relu(x, slope)
 
 
@@ -144,7 +171,8 @@ class FusedINLeakyReLU(nn.Module):
 
 class GaussianNoise(nn.Module):
     """Additive N(0, 1) noise, active only in training.  ``noise`` is an
-    injected draw of x's shape; else it is drawn from ``generator``."""
+    injected draw of x's shape, taken in x's dtype (the JAX package draws
+    in x's dtype); else it is drawn from ``generator``."""
 
     def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -156,7 +184,7 @@ class GaussianNoise(nn.Module):
                                  "in training")
             noise = torch.randn(x.shape, generator=generator,
                                 dtype=x.dtype, device=x.device)
-        return x + noise
+        return x + noise.to(x.dtype)
 
 
 class Dropout(nn.Module):
@@ -183,11 +211,16 @@ class Dropout(nn.Module):
 class ResidualBody(nn.Sequential):
     """A residual block's body; the children are the JAX body's slots, so
     state_dict keys follow its pytree.  A trailing ``Dropout`` takes the
-    generator."""
+    generator, and is skipped with ``dropout=False`` (the JAX package's
+    ``train=False``)."""
 
-    def body(self, x: torch.Tensor, generator=None, stop=None):
+    def body(self, x: torch.Tensor, generator=None, stop=None,
+             dropout: bool = True):
         for m in list(self)[:stop]:
-            x = m(x, generator=generator) if isinstance(m, Dropout) else m(x)
+            if isinstance(m, Dropout):
+                x = m(x, generator=generator) if dropout else x
+            else:
+                x = m(x)
         return x
 
 
@@ -205,11 +238,12 @@ class LeakyINSResBlock(ResidualBody):
             body.append(Dropout(dropout))
         super().__init__(*body)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None,
+                dropout: bool = True) -> torch.Tensor:
         if len(self) == 5 and norm_act.in_res_fused_enabled():
             return norm_act.fused_instance_norm_residual(
                 self.body(x, stop=4), x)
-        return x + self.body(x, generator)
+        return x + self.body(x, generator, dropout=dropout)
 
 
 class LeakyINSResNeXtBlock(ResidualBody):
@@ -227,5 +261,6 @@ class LeakyINSResNeXtBlock(ResidualBody):
             body.append(Dropout(dropout))
         super().__init__(*body)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        return x + self.body(x, generator)
+    def forward(self, x: torch.Tensor, generator=None,
+                dropout: bool = True) -> torch.Tensor:
+        return x + self.body(x, generator, dropout=dropout)

@@ -9,6 +9,11 @@ moments of every leaf on every step.  Here a parameter whose grad is None
 gets a zero grad and no decay, and its moments are still updated: what
 ``zeroed_subtrees`` gives the JAX trainer.  The update runs in place on
 the parameters and the moments.
+
+As in the optax chain, Adam's bias correction and the schedule count
+apart (``count`` and ``sched_count``, the chain's slots 1 and 2): both
+move by one per step, but a resume without optimizer files sets only the
+schedule's, so that the LR goes on while Adam starts afresh.
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
 
 
 class AdamMultiStep:
-    """Coupled weight decay -> Adam -> ``-lr(count)`` over a fixed list of
-    parameters, with one ``count`` for all of them."""
+    """Coupled weight decay -> Adam -> ``-lr(sched_count)`` over a fixed
+    list of parameters, with one ``count`` (Adam's) and one
+    ``sched_count`` (the schedule's) for all of them."""
 
     def __init__(self, params: Iterable[torch.Tensor],
                  lr: Callable[[int], float], weight_decay: float,
@@ -50,10 +56,11 @@ class AdamMultiStep:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.sched_count = 0
 
     def current_lr(self) -> float:
         """The LR the next ``step`` applies."""
-        return self.lr(self.count)
+        return self.lr(self.sched_count)
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
@@ -65,7 +72,7 @@ class AdamMultiStep:
         count_inc = self.count + 1
         bc1 = 1 - b1 ** count_inc
         bc2 = 1 - b2 ** count_inc
-        step_size = -self.lr(self.count)
+        step_size = -self.lr(self.sched_count)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             if g is None:
                 g = torch.zeros_like(p)
@@ -76,6 +83,7 @@ class AdamMultiStep:
             p.add_(step_size * ((mu / bc1) / (torch.sqrt(nu / bc2)
                                                + self.eps)))
         self.count = count_inc
+        self.sched_count += 1
 
 
 def dis_optimizer(params, lr: float, sch_interval: int = 1000):

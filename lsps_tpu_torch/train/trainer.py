@@ -20,15 +20,19 @@ given comes from the trainer's ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import copy
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lsps_tpu_torch import resolve_device
+from lsps_tpu_torch.data import augment
 from lsps_tpu_torch.models import build_model
 from lsps_tpu_torch.ops import layers as L
 from lsps_tpu_torch.registry import register
+from lsps_tpu_torch.train import checkpoint as ckpt
 from lsps_tpu_torch.train import optim
 
 NoiseDict = Optional[Mapping[str, torch.Tensor]]
@@ -88,6 +92,22 @@ def _split(t: torch.Tensor, n: int):
     return [t[i * m:(i + 1) * m] for i in range(n)]
 
 
+def _compute_dtype(hyp) -> Optional[torch.dtype]:
+    cd = str(hyp.get("compute_dtype", "float32")).lower()
+    if cd in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if cd in ("float32", "f32", "none"):
+        return None
+    raise ValueError(f"unsupported compute_dtype {cd!r}")
+
+
+def _step_slice(x, i: int):
+    """Step ``i`` of a K-stacked input: a raw tuple leaf by leaf."""
+    if isinstance(x, tuple):
+        return tuple(leaf[i] for leaf in x)
+    return x[i]
+
+
 # ---------------------------------------------------------------------------
 @register("trainer", "LSPSTrainer")
 class LSPSTrainer:
@@ -102,21 +122,28 @@ class LSPSTrainer:
     unless one is named.  Draws that are not injected come from
     ``self.generator``, seeded with ``seed``.
 
-    Not ported: ``compute_dtype: bfloat16``, ``remat``, ``axis_name``,
-    the fused-augment ``*_raw`` steps and the ``*_scan`` variants.  With
-    ``res_dropout_ratio > 0`` (no shipped config sets it) the train_map
-    decode keeps dropout on, where the JAX trainer decodes with it off.
+    ``compute_dtype: bfloat16`` runs the gen, dis and map forwards of the
+    image updates on bfloat16 copies of the nets, refreshed from the
+    parameters at the start of each update; their gradients are cast back
+    to the parameters' dtype.  Parameters and optimizer state stay at
+    rest in their own dtype, losses and reductions in at least float32,
+    the pose-VAE update in its own dtype, and the outputs handed back are
+    float32.  ``remat: true`` recomputes the generator's joint pass in the
+    backward (``torch.utils.checkpoint``); its draws come from a generator
+    restored to the state it had when the pass began, so the recompute
+    draws the same noise and dropout masks.
+
+    Not ported: ``axis_name`` (data parallelism) and ``assemble_outputs``
+    (the viz strip).
     """
 
     def __init__(self, hyperparameters: Dict[str, Any],
                  state_dict: Mapping[str, torch.Tensor],
                  sch_interval: int = 1000, device=None, seed: int = 0):
         hyp = dict(hyperparameters)
-        if (str(hyp.get("compute_dtype", "float32")).lower()
-                not in ("float32", "f32", "none") or hyp.get("remat")):
-            raise NotImplementedError("compute_dtype other than float32 "
-                                      "and remat are not ported")
         self.hyp = hyp
+        self.compute_dtype = _compute_dtype(hyp)
+        self.remat = bool(hyp.get("remat", False))
         self.device = resolve_device(device)
         self.nets = nn.ModuleDict({k: build_model(hyp[k])
                                    for k in ("dis", "gen", "vae", "map")})
@@ -127,6 +154,11 @@ class LSPSTrainer:
         self.dis, self.gen = self.nets["dis"], self.nets["gen"]
         self.vae, self.map = self.nets["vae"], self.nets["map"]
         self.nets.train()
+        self._cast: Optional[nn.ModuleDict] = None
+        if self.compute_dtype is not None:
+            self._cast = copy.deepcopy(nn.ModuleDict(
+                {k: self.nets[k] for k in ("dis", "gen", "map")})).to(
+                    self.compute_dtype)
 
         lr = hyp["lr"]
         self.dis_opt = optim.dis_optimizer(self.dis.parameters(), lr,
@@ -136,6 +168,9 @@ class LSPSTrainer:
             sch_interval)
         self.vae_opt = optim.vae_optimizer(self.vae.parameters(), lr,
                                            sch_interval)
+        # each optimizer's nets, in its order: the trees of its state
+        self.dis_opt_nets = ((None, self.dis),)
+        self.gen_opt_nets = (("gen", self.gen), ("map", self.map))
         self.train_map = bool(hyp.get("train_map", False))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -146,6 +181,28 @@ class LSPSTrainer:
         dtype = self.dis.D.weight.dtype
         return torch.as_tensor(x, device=self.device).to(dtype)
 
+    def _cd(self, x: torch.Tensor) -> torch.Tensor:
+        """x in the compute dtype."""
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """An output handed back: float32 under a compute dtype."""
+        x = x.detach()
+        return x if self.compute_dtype is None else x.float()
+
+    def _compute_nets(self):
+        """(gen, dis, map) for the image updates' forwards: the nets, or
+        under a compute dtype their copies, refreshed from the
+        parameters."""
+        if self._cast is None:
+            return self.gen, self.dis, self.map
+        with torch.no_grad():
+            for k, cast in self._cast.items():
+                for c, p in zip(cast.parameters(),
+                                self.nets[k].parameters()):
+                    c.copy_(p)
+        return self._cast["gen"], self._cast["dis"], self._cast["map"]
+
     def _encode_pose(self, labels, noise):
         """Noisy pose codes of the VAE encoder (no grad)."""
         with torch.no_grad():
@@ -153,9 +210,35 @@ class LSPSTrainer:
                                       generator=self.generator)
         return z
 
-    def _apply(self, opt: optim.AdamMultiStep, loss: torch.Tensor) -> None:
-        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
-        opt.step(grads)
+    def _apply(self, opt: optim.AdamMultiStep, loss: torch.Tensor,
+               wrt: Sequence[torch.Tensor]) -> None:
+        """One step of ``opt`` with the gradients of ``loss`` by ``wrt``
+        (the optimizer's parameters or their compute-dtype copies, in
+        its order), cast to the parameters' dtype."""
+        grads = torch.autograd.grad(loss, list(wrt), allow_unused=True)
+        opt.step([None if g is None else g.to(p.dtype)
+                  for g, p in zip(grads, opt.params)])
+
+    def _gen_fwd(self, gen, xa, xb, noise):
+        """The generator's joint pass, (x_aa, x_ba, x_ab, x_bb, shared).
+        Under remat (and with grad on) it is recomputed in the backward:
+        it then draws from a copy of ``self.generator`` taken before it,
+        which each run restores, and ``self.generator`` moves on to where
+        the first run left the copy."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return gen(xa, xb, noise=noise, generator=self.generator)
+        start, ends = self.generator.get_state(), []
+
+        def region(xa, xb, noise):
+            g = torch.Generator(device=self.device)
+            g.set_state(start)
+            out = gen(xa, xb, noise=noise, generator=g)
+            ends.append(g.get_state())
+            return out
+
+        out = checkpoint(region, xa, xb, noise, use_reentrant=False)
+        self.generator.set_state(ends[0])
+        return out
 
     # ------------------------------------------------------------------
     # VAE update
@@ -170,7 +253,7 @@ class LSPSTrainer:
         enc_loss = kl_loss(mu, sd)
         ll_loss = l1_loss(dec, y)
         total = hyp["kl_loss_vae"] * enc_loss + hyp["ll_loss_vae"] * ll_loss
-        self._apply(self.vae_opt, total)
+        self._apply(self.vae_opt, total, self.vae_opt.params)
         self.step += 1
         return ({"vae_total_loss": total.detach(),
                  "vae_enc_loss": enc_loss.detach(),
@@ -188,12 +271,13 @@ class LSPSTrainer:
         output images)."""
         hyp = self.hyp
         noise = noise or {}
-        gen, g = self.gen, self.generator
+        g = self.generator
+        gen, dis, mp = self._compute_nets()
         xa, xb = self._to(images_a), self._to(images_b)
         lr = self.gen_opt.current_lr()
 
-        x_aa, x_ba, x_ab, x_bb, shared = gen(xa, xb, noise=noise.get("gen"),
-                                             generator=g)
+        x_aa, x_ba, x_ab, x_bb, shared = self._gen_fwd(
+            gen, self._cd(xa), self._cd(xb), noise.get("gen"))
         x_bab, shared_bab = gen.forward_a2b(x_ba, noise=noise.get("a2b"),
                                             generator=g)
         x_aba, shared_aba = gen.forward_b2a(x_ab, noise=noise.get("b2a"),
@@ -201,8 +285,9 @@ class LSPSTrainer:
         zero = xa.new_zeros(())
         if self.train_map:
             labels = torch.cat([self._to(labels_a), self._to(labels_b)])
-            z_p2d = self.map(self._encode_pose(labels, noise.get("vae")))
-            dec_a_full, dec_b_full = gen.decode(z_p2d, generator=g)
+            z_p2d = mp(self._cd(self._encode_pose(labels,
+                                                  noise.get("vae"))))
+            dec_a_full, dec_b_full = gen.decode(z_p2d)
             half = dec_a_full.shape[0] // 2
             decode_a, decode_b = dec_a_full[:half], dec_b_full[half:]
             data_a = torch.cat([x_ba, decode_a])
@@ -215,7 +300,7 @@ class LSPSTrainer:
             data_b, decode_b = x_ab, x_ab
             matching_z = matching_a = matching_b = zero
 
-        outs_a, outs_b, _, _ = self.dis(data_a, data_b)
+        outs_a, outs_b, _, _ = dis(data_a, data_b)
         ad_loss_a = bce_logits_vs_ones(outs_a)
         ad_loss_b = bce_logits_vs_ones(outs_b)
         enc_loss = kl_loss(shared)
@@ -232,7 +317,8 @@ class LSPSTrainer:
                  + hyp["kl_cycle_link_w"] * (enc_bab + enc_aba)
                  + hyp["ll_map_z_w"] * matching_z
                  + hyp["ll_map_w"] * (matching_a + matching_b))
-        self._apply(self.gen_opt, total)
+        self._apply(self.gen_opt, total,
+                    [*gen.parameters(), *mp.parameters()])
         metrics = {
             "gen_enc_loss": enc_loss,
             "gen_enc_loss2": enc_aba + enc_bab,
@@ -246,7 +332,7 @@ class LSPSTrainer:
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["gen_lr"] = lr
         outs = (x_aa, x_ba, x_ab, x_bb, x_aba, x_bab, decode_a, decode_b)
-        return metrics, tuple(o.detach() for o in outs)
+        return metrics, tuple(self._out(o) for o in outs)
 
     # ------------------------------------------------------------------
     # discriminator update
@@ -258,17 +344,19 @@ class LSPSTrainer:
         ``vae`` ((2B, z_dim)).  Returns (metrics, None)."""
         hyp = self.hyp
         noise = noise or {}
-        gen, g = self.gen, self.generator
-        xa, xb = self._to(images_a), self._to(images_b)
+        gen, dis, mp = self._compute_nets()
+        xa = self._cd(self._to(images_a))
+        xb = self._cd(self._to(images_b))
         lr = self.dis_opt.current_lr()
 
         with torch.no_grad():
-            x_aa, x_ba, x_ab, x_bb, _ = gen(xa, xb, noise=noise.get("gen"),
-                                            generator=g)
+            x_aa, x_ba, x_ab, x_bb, _ = self._gen_fwd(gen, xa, xb,
+                                                      noise.get("gen"))
             if self.train_map:
                 labels = torch.cat([self._to(labels_a), self._to(labels_b)])
-                z_p2d = self.map(self._encode_pose(labels, noise.get("vae")))
-                dec_a_full, dec_b_full = gen.decode(z_p2d, generator=g)
+                z_p2d = mp(self._cd(self._encode_pose(labels,
+                                                      noise.get("vae"))))
+                dec_a_full, dec_b_full = gen.decode(z_p2d)
                 half = dec_a_full.shape[0] // 2
                 data_a = torch.cat([xa, x_ba, x_aa, dec_a_full[:half]])
                 data_b = torch.cat([xb, x_ab, x_bb, dec_b_full[half:]])
@@ -282,8 +370,8 @@ class LSPSTrainer:
                 data_b = torch.cat([xb, x_ab])
                 ndiv = 2
 
-        res_a, res_b, feats_a, feats_b = self.dis(data_a, data_b)
-        zero = res_a.new_zeros(())
+        res_a, res_b, feats_a, feats_b = dis(data_a, data_b)
+        zero = _f32(res_a.new_zeros(()))
         feature_loss_a = feature_loss_b = zero
         if feat_mat:
             fa, fb = _split(feats_a, ndiv), _split(feats_b, ndiv)
@@ -300,7 +388,7 @@ class LSPSTrainer:
                      + ad_dec_b)
         loss = (hyp["gan_w"] * (ad_loss_a + ad_loss_b)
                 + hyp["feature_w"] * (feature_loss_a + feature_loss_b))
-        self._apply(self.dis_opt, loss)
+        self._apply(self.dis_opt, loss, list(dis.parameters()))
         metrics = {
             "dis_ad_loss": (ad_loss_a + ad_loss_b).detach(),
             "dis_feat_loss": (feature_loss_a + feature_loss_b).detach(),
@@ -338,8 +426,9 @@ class LSPSTrainer:
         ``vae_b`` ((B, z_dim)).  Returns (metrics, outputs or None)."""
         hyp = self.hyp
         noise = noise or {}
-        dis = self.dis
+        gen, dis, _ = self._compute_nets()
         xa, xb = self._to(images_a), self._to(images_b)
+        ca, cb = self._cd(xa), self._cd(xb)
         lr = self.dis_opt.current_lr()
         zero = xa.new_zeros(())
         reg_loss_a = reg_loss_b = zero
@@ -352,28 +441,153 @@ class LSPSTrainer:
                                                    noise.get(key)))
 
         if mode == 0:
-            reg_loss_a = regress(dis.regress_a, xa, labels_a, "vae_a")
+            reg_loss_a = regress(dis.regress_a, ca, labels_a, "vae_a")
         elif mode == 1:
-            reg_loss_b = regress(dis.regress_b, xb, labels_b, "vae_b")
+            reg_loss_b = regress(dis.regress_b, cb, labels_b, "vae_b")
         else:
             with torch.no_grad():
-                x_aa, x_ba, x_ab, x_bb, _ = self.gen(
-                    xa[0:4], xb[0:4], noise=noise.get("gen"),
+                x_aa, x_ba, x_ab, x_bb, _ = gen(
+                    ca[0:4], cb[0:4], noise=noise.get("gen"),
                     generator=self.generator)
             f_aa, f_ba, f_ab, f_bb = dis.feats(x_aa, x_ba, x_ab, x_bb)
             feature_loss_a = l1_loss(f_ab - f_aa)
             feature_loss_b = l1_loss(f_ba - f_bb)
             images = (x_aa, x_ba, x_ab, x_bb)
-            reg_loss_a = regress(dis.regress_a, xa, labels_a, "vae_a")
+            reg_loss_a = regress(dis.regress_a, ca, labels_a, "vae_a")
             if mode == 4:
-                reg_loss_b = regress(dis.regress_b, xb, labels_b, "vae_b")
+                reg_loss_b = regress(dis.regress_b, cb, labels_b, "vae_b")
 
         total = (hyp["reg_w"] * (reg_loss_a + reg_loss_b)
                  + hyp["feature_w_reg"] * (feature_loss_a + feature_loss_b))
-        self._apply(self.dis_opt, total)
+        self._apply(self.dis_opt, total, list(dis.parameters()))
         metrics = {"dis_reg_loss": (reg_loss_a + reg_loss_b).detach(),
                    "dis_total_loss": total.detach(), "dis_lr": lr}
         if not with_viz:
             return metrics, None
-        x_aa, x_ba, x_ab, x_bb = images
+        x_aa, x_ba, x_ab, x_bb = (self._out(i) for i in images)
         return metrics, (x_aa, x_ba, x_ab, x_bb, x_aa, x_bb, x_aa, x_bb)
+
+    # ------------------------------------------------------------------
+    # fused-augment steps: the image half of the augment (warp, sentinels,
+    # z-clamp, normalize: data/augment.py) on the trainer's device, then
+    # the image step.  The raw tuples are FastAugmenter.raw_batch's, numpy
+    # or tensors; a uint16 src crosses to the device at half width.
+    # ------------------------------------------------------------------
+    def _augment(self, raw) -> torch.Tensor:
+        """A raw tuple -> (B, H, W, 1) float32 crops on the device."""
+        return augment.recrop_normalize_batch(*raw,
+                                              device=self.device)[..., None]
+
+    def _raw(self, update: Callable, raw_a, labels_a, raw_b, labels_b,
+             viz: bool, **kw):
+        images_a, images_b = self._augment(raw_a), self._augment(raw_b)
+        met, outs = update(images_a, labels_a, images_b, labels_b, **kw)
+        if not viz:
+            return met, None
+        return met, (outs, images_a, images_b)
+
+    def pretrain_update_raw(self, raw_a, labels_a, raw_b, labels_b,
+                            feat_mat: bool = True, with_viz: bool = True,
+                            noise=None):
+        """``pretrain_update`` on augmented raw batches.  Returns (metrics,
+        (gen outputs, images_a, images_b) or None)."""
+        return self._raw(self.pretrain_update, raw_a, labels_a, raw_b,
+                         labels_b, with_viz, feat_mat=feat_mat,
+                         with_viz=with_viz, noise=noise)
+
+    def gen_update_raw(self, raw_a, labels_a, raw_b, labels_b,
+                       with_viz: bool = True, noise: NoiseDict = None):
+        """``gen_update`` on augmented raw batches (the collapse rescue's
+        generator-only phases)."""
+        return self._raw(self.gen_update, raw_a, labels_a, raw_b, labels_b,
+                         with_viz, noise=noise)
+
+    def post_update_raw(self, raw_a, labels_a, raw_b, labels_b,
+                        mode: int = 3, with_viz: bool = True,
+                        noise: NoiseDict = None):
+        """``post_update`` on augmented raw batches."""
+        return self._raw(self.post_update, raw_a, labels_a, raw_b, labels_b,
+                         with_viz, mode=mode, with_viz=with_viz, noise=noise)
+
+    # ------------------------------------------------------------------
+    # multi-step variants: K steps per call over inputs stacked on a
+    # leading K axis (a raw tuple leaf by leaf).  The JAX trainer runs
+    # them as one lax.scan program; here they are a Python loop over the
+    # single steps (one CUDA graph of the chunk would be the faster
+    # form, not done).  ``noise`` is None or a list of K per-step noise
+    # arguments.  Each returns (per-step metrics stacked to (K,) tensors,
+    # the last step's outputs).
+    # ------------------------------------------------------------------
+    def _scan(self, step: Callable, xs: Sequence, noise: Optional[List]):
+        first = xs[0][0] if isinstance(xs[0], tuple) else xs[0]
+        k = len(first)
+        if noise is not None and len(noise) != k:
+            raise ValueError(f"{len(noise)} noise entries for {k} steps")
+        mets, outs = [], None
+        for i in range(k):
+            met, outs = step(*(_step_slice(x, i) for x in xs),
+                             noise=None if noise is None else noise[i])
+            mets.append(met)
+        stacked = {key: torch.stack([torch.as_tensor(m[key],
+                                                     device=self.device)
+                                     for m in mets]) for key in mets[0]}
+        return stacked, outs
+
+    def vae_scan(self, labels, noise: Optional[List] = None):
+        """K pose-VAE steps on ``labels`` (K, B, D); the outputs are the
+        last step's recons."""
+        return self._scan(self.vae_update, (labels,), noise)
+
+    def pretrain_scan(self, in_a, labels_a, in_b, labels_b,
+                      raw: bool = False, feat_mat: bool = True,
+                      with_viz: bool = True, noise: Optional[List] = None):
+        """K ``pretrain_update`` (``raw=True``: ``pretrain_update_raw``)
+        steps; without ``with_viz`` the outputs are None."""
+        upd = self.pretrain_update_raw if raw else self.pretrain_update
+
+        def step(ia, la, ib, lb, noise):
+            return upd(ia, la, ib, lb, feat_mat=feat_mat, with_viz=with_viz,
+                       noise=noise)
+
+        return self._scan(step, (in_a, labels_a, in_b, labels_b), noise)
+
+    def post_scan(self, in_a, labels_a, in_b, labels_b, raw: bool = False,
+                  mode: int = 3, with_viz: bool = True,
+                  noise: Optional[List] = None):
+        """K posterior-regression steps (``raw=True``: on raw tuples)."""
+        upd = self.post_update_raw if raw else self.post_update
+
+        def step(ia, la, ib, lb, noise):
+            return upd(ia, la, ib, lb, mode=mode, with_viz=with_viz,
+                       noise=noise)
+
+        return self._scan(step, (in_a, labels_a, in_b, labels_b), noise)
+
+    # ------------------------------------------------------------------
+    # checkpoints: the JAX package's .npz files (train/checkpoint.py)
+    # ------------------------------------------------------------------
+    def save(self, snapshot_prefix: str, iterations: int,
+             save_opt: bool = True) -> None:
+        """gen/dis/map and the gen and dis optimizers, numbered
+        ``iterations + 1``."""
+        ckpt.save(self, snapshot_prefix, iterations, save_opt)
+
+    def save_vae(self, snapshot_prefix: str, iterations: int,
+                 frac: float) -> None:
+        ckpt.save_vae(self, snapshot_prefix, iterations, frac)
+
+    def resume(self, snapshot_prefix: str, idx: int = -1,
+               load_opt: bool = False, est: bool = False) -> int:
+        """Load the latest snapshot set; returns its iteration (0 if
+        none).  A resume with ``load_opt`` that finds no optimizer files
+        of the same save still continues the LR schedule from that
+        iteration, while Adam starts afresh, as the JAX trainer does."""
+        iterations, opt_loaded = ckpt.resume(self, snapshot_prefix, idx,
+                                             load_opt, est)
+        if load_opt and iterations > 0 and not opt_loaded:
+            self.gen_opt.sched_count = iterations
+            self.dis_opt.sched_count = iterations
+        return iterations
+
+    def load_vae(self, snapshot_prefix: str, frac: float) -> bool:
+        return ckpt.load_vae(self, snapshot_prefix, frac)

@@ -1,4 +1,4 @@
-"""JAX parameter pytrees -> state_dicts of the port's modules.
+"""JAX parameter pytrees <-> state_dicts of the port's modules.
 
 The inverse of ``lsps_tpu/train/torch_convert.py:to_state_dict``.  A key is
 the pytree path with the leaf renamed (``model_B.0.0.weight``,
@@ -13,15 +13,18 @@ exactly as the JAX package's ``sequential`` lists do.  Per leaf:
 
 The tree is nested dicts/lists of arrays; anything ``np.asarray`` reads
 (numpy or JAX arrays) will do, and nothing of JAX is imported here.
+``to_jax_params`` is the inverse: a module's tensors -> the JAX package's
+pytree, which is also the layout of its ``.npz`` checkpoints.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _walk(node: Any, path: List[str], out: Dict[str, torch.Tensor]) -> None:
@@ -54,3 +57,44 @@ def from_jax_params(tree: Any) -> "OrderedDict[str, torch.Tensor]":
     out: Dict[str, torch.Tensor] = OrderedDict()
     _walk(tree, [], out)
     return out
+
+
+def _to_jax(module: nn.Module, prefix: str,
+            tensors: Mapping[str, torch.Tensor]) -> Any:
+    own = [n for n, _ in module.named_parameters(recurse=False)]
+    if own:
+        node = {}
+        for name in own:
+            # a copy: the tree never aliases the module's tensors
+            a = tensors[prefix + name].detach().cpu().numpy().copy()
+            if name == "bias":
+                node["b"] = a
+            elif isinstance(module, nn.ConvTranspose2d):
+                node["wt"] = a.transpose(2, 3, 0, 1)
+            elif a.ndim == 4:
+                node["w"] = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                node["w"] = a.T
+            else:
+                raise ValueError(f"no rule for {prefix}{name} with shape "
+                                 f"{a.shape}")
+        return node
+    kids = [(n, _to_jax(m, f"{prefix}{n}.", tensors))
+            for n, m in module.named_children()]
+    if isinstance(module, (nn.Sequential, nn.ModuleList)):
+        return [t for _, t in kids]
+    return dict(kids)
+
+
+def to_jax_params(module: nn.Module,
+                  tensors: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Any:
+    """A module's parameters (or ``tensors``, keyed as its state_dict:
+    Adam's moments, for example) -> the JAX package's pytree: dicts for
+    named children, lists for ``nn.Sequential`` slots (``{}`` where a slot
+    has no parameters), ``w`` HWIO / (in, out), ``wt`` (kh, kw, I, O),
+    ``b``; numpy arrays (copies) in the tensors' dtype.
+    ``from_jax_params(to_jax_params(m))`` is ``m.state_dict()``."""
+    if tensors is None:
+        tensors = module.state_dict()
+    return _to_jax(module, "", tensors)

@@ -6,6 +6,7 @@ contract: CPU tensors run the plain version, a launch counter exists and
 only kernel launches move it, other devices raise.
 """
 
+import json
 import re
 import subprocess
 import sys
@@ -23,7 +24,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 import lsps_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lsps_tpu_torch.__path__,
@@ -33,7 +34,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "lsps_tpu"))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
 
 
@@ -42,9 +43,12 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          capture_output=True, text=True, cwd=ROOT,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    n_modules, bad = res.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 22
-    assert bad.strip() == "[]"
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(out["names"]) >= 24
+    # the training augment and the checkpoints are among the modules held
+    assert {"lsps_tpu_torch.data.augment",
+            "lsps_tpu_torch.train.checkpoint"} <= set(out["names"])
+    assert out["bad"] == []
 
 
 def _inputs():

@@ -27,86 +27,17 @@ import jax.numpy as jnp
 from jax import enable_x64
 import optax
 
-from helpers import tiny_trainer
-from lsps_tpu.ops.pallas import norm_act as J
 from lsps_tpu.train import optim as jax_optim
-from lsps_tpu.train.trainer import TrainState, zeroed_subtrees
-from lsps_tpu_torch.train import LSPSTrainer
+from lsps_tpu.train.trainer import zeroed_subtrees
 from lsps_tpu_torch.train import optim
-from lsps_tpu_torch.weights import from_jax_params
+from torch_lockstep import (B, REG, TRAJ_ATOL, TRAJ_RTOL, jnp_norms,  # noqa: F401
+                            pretrain_noise, recorded)
+from torch_lockstep import batch as _batch
+from torch_lockstep import check_metrics as _check_metrics
+from torch_lockstep import check_params as _check_params
+from torch_lockstep import pair as _pair
 
 torch.set_num_threads(1)
-
-TRAJ_RTOL, TRAJ_ATOL = 1e-7, 1e-8
-PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-8
-B = 2
-REG = 12
-
-
-@pytest.fixture(autouse=True)
-def jnp_norms():
-    J.set_pallas_enabled(False)
-    yield
-    J.set_pallas_enabled(None)
-
-
-def _pair(train_map=False, sch_interval=2):
-    """JAX trainer + float64 state, and the port's trainer on the CPU
-    with the same weights.  Call inside ``enable_x64()``."""
-    jt = tiny_trainer(map_output_ch=16, train_map=train_map)
-    jt = type(jt)(jt.hyp, sch_interval=sch_interval)
-    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
-                          jt.init_state(jax.random.PRNGKey(0))["params"])
-    opt = {"dis": jt.dis_opt.init(params["dis"]),
-           "gen": jt.gen_opt.init({"gen": params["gen"],
-                                   "map": params["map"]}),
-           "vae": jt.vae_opt.init(params["vae"])}
-    port = LSPSTrainer(jt.hyp, from_jax_params(params),
-                       sch_interval=sch_interval, device="cpu")
-    return jt, TrainState.create(params, opt), port
-
-
-def recorded(fn, *args, **kw):
-    """fn(*args, **kw) with every jax.random.normal draw recorded."""
-    draws, orig = [], jax.random.normal
-
-    def normal(key, shape=(), dtype=jnp.float32):
-        out = orig(key, shape, dtype)
-        draws.append(torch.from_numpy(np.array(out)))
-        return out
-
-    jax.random.normal = normal
-    try:
-        return fn(*args, **kw), draws
-    finally:
-        jax.random.normal = orig
-
-
-def _batch(k):
-    rs = np.random.RandomState(1000 + k)
-    return (rs.uniform(-1, 1, (B, 128, 128, 1)),
-            rs.uniform(-0.3, 0.3, (B, REG)),
-            rs.uniform(-1, 1, (B, 128, 128, 1)),
-            rs.uniform(-0.3, 0.3, (B, REG)))
-
-
-def _check_metrics(got, want, what):
-    assert set(got) == set(want), what
-    for key, w in want.items():
-        np.testing.assert_allclose(float(got[key]), float(np.asarray(w)),
-                                   rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
-                                   err_msg=f"{what}: {key}")
-
-
-def _check_params(port, state, nets, what):
-    for net in nets:
-        want = from_jax_params(state["params"][net])
-        got = port.nets[net].state_dict()
-        assert set(got) == set(want)
-        for k, w in want.items():
-            np.testing.assert_allclose(got[k].numpy(), w.numpy(),
-                                       rtol=PARAM_RTOL, atol=PARAM_ATOL,
-                                       err_msg=f"{what}: {net}.{k}")
 
 
 @pytest.mark.parametrize("train_map", [False, True], ids=["map_off",
@@ -119,15 +50,8 @@ def test_pretrain_lockstep(train_map):
             batch = _batch(k)
             (state, want, _), d = recorded(jt._pretrain_update, state,
                                            *batch, jax.random.PRNGKey(k))
-            if train_map:
-                noise = {"dis": {"gen": d[0], "vae": d[1]},
-                         "gen": {"gen": d[2], "a2b": d[3], "b2a": d[4],
-                                 "vae": d[5]}}
-            else:
-                noise = {"dis": {"gen": d[0]},
-                         "gen": {"gen": d[1], "a2b": d[2], "b2a": d[3]}}
-            assert len(d) == (6 if train_map else 4)
-            got, outs = port.pretrain_update(*batch, noise=noise)
+            got, outs = port.pretrain_update(
+                *batch, noise=pretrain_noise(d, train_map))
             assert len(outs) == 8
             what = f"pretrain step {k} train_map={train_map}"
             _check_metrics(got, want, what)
