@@ -70,7 +70,22 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    peak memory; ``pretrain_update_raw`` beside ``pretrain_update`` at
    batch 8 and 32 in float32 and bfloat16, and ``vae_scan`` K=8 beside 8
    ``vae_update`` calls at batch 64;
-10. print the ``kernels`` line, the card's name and power limit, and last
+10. drive the training CLIs in process through their ``main(argv)``, at
+    the nnyu widths of ``exps/synth_full.yaml`` cut as ``CLI_CUTS`` says
+    (frames per dataset and cadences), with the norm kernels' launch
+    counts set to 0 just before each run and read just after:
+    ``pose_train --frac 0.5`` (scan of 8), ``depth_train --mode
+    pretrain`` on the ``step``, ``jax`` and ``jax`` + ``--bf16`` augment
+    paths (at least 44 / 30 IN + LeakyReLU launches per iteration),
+    ``--mode estimate3 --frac 0.5`` from those snapshots (the generator's
+    no-grad forwards in every iteration, no backward, a finite mean
+    error), each leaving the files it should and snapshots a fresh
+    trainer resumes bit for bit; then ``pose_train`` on
+    ``exps/synth.yaml`` for 2001 iterations, whose last eval must be at
+    most a third of its first and at most 4.4 mm.  Each run prints its
+    dataset seconds, ms per iteration over the loop beside the bare
+    step's from phase 9, launches per iteration and eval errors;
+11. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -84,6 +99,7 @@ import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -429,14 +445,23 @@ def phase_warp(torch, dev, cam):
             if b == "edges":
                 continue
             # on the card crop_normalize_batch is one kernel, index math
-            # included
-            by_name, _, _ = profile_kernels(torch, functools.partial(
-                crop_normalize_batch, ft, c, cu, cam.fx, cam.fy), iters=3)
+            # included: one launch per call by the wrapper's count, and no
+            # other kernel in the trace (which may drop a launch, never
+            # add one)
+            call = functools.partial(crop_normalize_batch, ft, c, cu,
+                                     cam.fx, cam.fy)
+            before = WK.crop_normalize.launches
+            for _ in range(3):
+                call()
+            counted = (WK.crop_normalize.launches - before) / 3
+            by_name, _, _ = profile_kernels(torch, call, iters=3)
             per_call = sum(k for _, k in by_name.values())
-            if round(per_call, 6) != 1:
+            if counted != 1 or len(by_name) != 1 or \
+                    round(per_call, 6) > 1:
                 raise AssertionError(f"crop_normalize_batch B={b}: "
-                                     f"{per_call} kernels per call: "
-                                     f"{list(by_name)}")
+                                     f"{counted} launches per call, "
+                                     f"{per_call} kernels per call in the "
+                                     f"trace: {list(by_name)}")
             iters = 200 if b < 256 else 50
             iy_np, ix_np = iy.cpu().numpy(), ix.cpu().numpy()
             esize = ft.element_size()
@@ -1728,6 +1753,340 @@ def phase_raw_timing(torch, dev, hyp, sd):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the training CLIs, driven in process through their main(argv)
+# ---------------------------------------------------------------------------
+
+# exps/synth_full.yaml (the nnyu widths on the synthetic hand data) as the
+# CLI phase runs it; the cuts, each from the file's value:
+CLI_CUTS = {
+    # rendering a 640 x 480 frame costs tens of ms on the host
+    "n_frames": {"train_a": 64, "train_b": 64, "test_b": 32},  # 384/384/32
+    # cadences short enough that each fires within a run
+    "display": 5,                     # 100
+    "image_display_iterations": 5,    # 500
+    "image_save_iterations": 10,      # 1000 (pose eval every 10x: 100)
+    # 5000 (VAE snapshot every 4x: 160); one snapshot per depth run: a
+    # save of the nnyu nets and optimizers costs ~40 s of compressed npz
+    "snapshot_save_iterations": 40,
+}
+CLI_POSE_ITERS = 160   # an eval at 100, the VAE snapshot at 160
+CLI_DEPTH_ITERS = 40   # strips every 5 and 10, the snapshot at 40
+CLI_BATCH = 8
+CONV_ITERS = 2001      # docs/BENCHMARKS.md: 11.4 -> 2.2 mm
+CONV_MAX_MM = 4.4      # twice the JAX package's 2.2 mm
+CONV_MIN_DROP = 3.0    # last eval at most a third of the first
+STEP_METHODS = ("vae_update", "vae_scan", "pretrain_update",
+                "pretrain_update_raw", "pretrain_scan", "post_update",
+                "post_update_raw", "post_scan", "gen_update",
+                "gen_update_raw")
+
+
+def cli_config(root, tmp):
+    """A copy of exps/synth_full.yaml with the cuts of ``CLI_CUTS``."""
+    import yaml
+
+    doc = yaml.safe_load((root / "exps" / "synth_full.yaml").read_text())
+    train = doc["train"]
+    for k, v in CLI_CUTS.items():
+        if k != "n_frames":
+            train[k] = v
+    for name, n in CLI_CUTS["n_frames"].items():
+        train["datasets"][name]["n_frames"] = n
+    path = tmp / "synth_full_cli.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    return str(path)
+
+
+def run_cli(torch, module, argv, augment=None):
+    """``module.main(argv)`` in process, with the norm kernels' launch
+    counts set to 0 just before and read just after.  Returns the run's
+    record: its stdout, the trainer it built, the seconds spent building
+    the datasets, the wall seconds, the iterations its update calls
+    covered, the host-clock ms per iteration from the end of its first
+    update call to the end of its last, and the launches."""
+    import io
+
+    from lsps_tpu_torch.cli import common as C
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+
+    rec = {"ends": [], "steps": [], "trainers": [], "depth": 0}
+    make_trainer, make_datasets = C.make_trainer, C.make_datasets
+
+    def stamped(fn, name):
+        # a scan and a raw step call the single steps through the
+        # instance: only the outermost call is the loop's
+        def call(*args, **kw):
+            rec["depth"] += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                rec["depth"] -= 1
+            if rec["depth"] == 0:
+                # a scan's steps: the leading axis of its labels
+                k = (len(args[0] if name == "vae_scan" else args[1])
+                     if name.endswith("scan") else 1)
+                rec["steps"].append(k)
+                rec["ends"].append(time.perf_counter())
+            return out
+        return call
+
+    def timed_trainer(*args, **kw):
+        trainer = make_trainer(*args, **kw)
+        for name in STEP_METHODS:
+            setattr(trainer, name, stamped(getattr(trainer, name),
+                                           name))
+        rec["trainers"].append(trainer)
+        return trainer
+
+    def timed_datasets(*args, **kw):
+        t0 = time.perf_counter()
+        out = make_datasets(*args, **kw)
+        rec["datasets_s"] = rec.get("datasets_s", 0.0) + (
+            time.perf_counter() - t0)
+        return out
+
+    buf = io.StringIO()
+    zero_norm_launches(N)
+    t0 = time.perf_counter()
+    try:
+        with unittest.mock.patch.object(C, "make_trainer", timed_trainer), \
+                unittest.mock.patch.object(C, "make_datasets",
+                                           timed_datasets), \
+                unittest.mock.patch.dict(os.environ), \
+                contextlib.redirect_stdout(buf):
+            os.environ.pop("LSPS_AUGMENT", None)
+            if augment is not None:
+                os.environ["LSPS_AUGMENT"] = augment
+            module.main(argv)
+    except BaseException:
+        log("\n".join(buf.getvalue().splitlines()[-40:]))
+        raise
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = norm_launches(N)
+    rec["stdout"] = buf.getvalue()
+    rec["iterations"] = sum(rec["steps"])
+    rec["loop_ms_per_iter"] = (
+        (rec["ends"][-1] - rec["ends"][0]) * 1e3
+        / max(1, rec["iterations"] - rec["steps"][0]))
+    # per call after the first: the gap to the call before over its steps
+    # (a call after cadence work, such as an eval or a snapshot, pays it)
+    gaps = [(b - a) * 1e3 / k for a, b, k in zip(
+        rec["ends"], rec["ends"][1:], rec["steps"][1:])]
+    rec["median_ms_per_iter"] = float(np.median(gaps)) if gaps else None
+    rec["trainer"] = rec["trainers"][-1]
+    return rec
+
+
+def stdout_errors(text, pattern):
+    import re
+
+    return [float(m) for m in re.findall(pattern, text)]
+
+
+def check_files(directory, names, what):
+    missing = [n for n in names if not (directory / n).is_file()]
+    if missing:
+        raise AssertionError(f"{what}: missing {missing} in {directory}")
+
+
+def same_tensors(torch, xs, ys):
+    xs, ys = list(xs), list(ys)
+    return len(xs) == len(ys) and all(torch.equal(x.cpu(), y.cpu())
+                                      for x, y in zip(xs, ys))
+
+
+def fresh_port_trainer(torch, dev, config_path):
+    from lsps_tpu_torch.config import NetConfig
+    from lsps_tpu_torch.train import LSPSTrainer
+    from lsps_tpu_torch.train.trainer import fresh_state_dict
+
+    hyp = NetConfig(config_path).hyperparameters
+    return LSPSTrainer(hyp, fresh_state_dict(hyp, 99), device=dev)
+
+
+def bare_step(raw_rows, update, dtype, batch, steps=1):
+    row = next((r for r in raw_rows if r["update"] == update
+                and r["dtype"] == dtype and r["batch"] == batch), None)
+    return None if row is None else row["ms"] / steps
+
+
+def phase_cli(torch, dev, raw_rows):
+    """The training CLIs at the nnyu widths on ``exps/synth_full.yaml`` cut
+    as ``CLI_CUTS`` says, in process: pose_train (default scan of 8),
+    depth_train pretrain on the step, jax and jax + bf16 augment paths,
+    estimate3 from the pretrain and VAE snapshots; then the pose
+    convergence of ``exps/synth.yaml``.  Each run must finish, write its
+    files, launch the norm kernels as its updates give them, and leave
+    snapshots a fresh trainer resumes bit for bit."""
+    import shutil
+
+    from lsps_tpu_torch.cli import depth_train, pose_train
+
+    root = Path(__file__).resolve().parent
+    tmp = root / "build" / "smoke_cli"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cfg = cli_config(root, tmp)
+    from lsps_tpu_torch.config import NetConfig
+
+    cli_hyp = NetConfig(cfg).hyperparameters
+    joint, one_way = in_act_counts(cli_hyp["gen"])
+    pose_batch = cli_hyp["batch_size_pose"]
+    pre_fwd, pre_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
+    rows = []
+
+    device_flag = "cpu" if dev.type == "cpu" else str(dev.index or 0)
+
+    def common(name, prefix):
+        return ["--config", cfg, "--device", device_flag,
+                "--log", str(tmp / "logs" / name),
+                "--snapshot-prefix", str(prefix)]
+
+    def report(name, rec, bare_ms, bare_what, errors=()):
+        n = rec["iterations"]
+        per_it = {k: v / n for k, v in rec["launches"].items()}
+        row = {"run": name, "iterations": n,
+               "datasets_s": rec["datasets_s"], "wall_s": rec["wall_s"],
+               "loop_ms_per_iter": rec["loop_ms_per_iter"],
+               "median_ms_per_iter": rec["median_ms_per_iter"],
+               "bare_step_ms": bare_ms, "bare_step": bare_what,
+               "launches": rec["launches"],
+               "launches_per_iter": per_it, "eval_mm": list(errors)}
+        rows.append(row)
+        bare = "not timed" if bare_ms is None else f"{bare_ms:.2f} ms"
+        log(f"cli {name}: datasets {rec['datasets_s']:.2f} s, {n} "
+            f"iterations, {rec['loop_ms_per_iter']:.2f} ms/iteration over "
+            f"the loop, median {rec['median_ms_per_iter']:.2f} (bare step "
+            f"{bare}: {bare_what}), "
+            f"wall {rec['wall_s']:.1f} s; launches per iteration "
+            f"{json.dumps({k: round(v, 3) for k, v in per_it.items()})}; "
+            f"eval mm {[round(e, 4) for e in errors]}")
+        return row
+
+    def check_pretrain_launches(name, rec):
+        n = rec["iterations"]
+        got = rec["launches"]
+        if got["in_act_forward"] < pre_fwd * n or \
+                got["in_act_backward"] < pre_bwd * n:
+            raise AssertionError(f"cli {name}: launches {got} over {n} "
+                                 f"iterations, want >= {pre_fwd} / "
+                                 f"{pre_bwd} per iteration")
+
+    def check_resume(name, rec, prefix, it, est=False):
+        fresh = fresh_port_trainer(torch, dev, cfg)
+        got = fresh.resume(str(prefix), load_opt=not est, est=est)
+        t = rec["trainer"]
+        nets = ("gen", "dis") if est else ("gen", "dis", "map")
+        if got != it or not all(same_tensors(
+                torch, t.nets[k].parameters(), fresh.nets[k].parameters())
+                for k in nets):
+            raise AssertionError(f"cli {name}: a fresh trainer resumed "
+                                 f"iteration {got}, not the run's {it} "
+                                 "parameters")
+        if not est and not all(
+                same_tensors(torch, a.mu + a.nu, b.mu + b.nu)
+                for a, b in ((t.gen_opt, fresh.gen_opt),
+                             (t.dis_opt, fresh.dis_opt))):
+            raise AssertionError(f"cli {name}: resumed optimizers differ")
+
+    # 1. pose_train, default scan of 8; its VAE snapshot feeds estimate3
+    run_a = tmp / "a"
+    rec = run_cli(torch, pose_train, common("pose", run_a / "pre") + [
+        "--frac", "0.5", "--max-iterations", str(CLI_POSE_ITERS)])
+    errs = stdout_errors(rec["stdout"], r"Mean error: ([0-9.eE+-]+)mm")
+    if not errs or not all(math.isfinite(e) for e in errs):
+        raise AssertionError(f"cli pose: eval errors {errs}")
+    check_files(run_a, ["pre_vae_2.50_00000160.npz", "index.html",
+                        "images/_test.png"], "cli pose")
+    fresh = fresh_port_trainer(torch, dev, cfg)
+    if not fresh.load_vae(str(run_a / "pre"), 2.5) or not same_tensors(
+            torch, fresh.vae.parameters(), rec["trainer"].vae.parameters()):
+        raise AssertionError("cli pose: the VAE snapshot does not load to "
+                             "the run's VAE")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"cli pose: norm launches {rec['launches']}")
+    report("pose_train --frac 0.5", rec,
+           bare_step(raw_rows, "vae_scan", "float32", pose_batch,
+                     VAE_SCAN_K),
+           f"vae_scan K={VAE_SCAN_K} per step at batch {pose_batch}; the "
+           "CLI steps on 2x that (frac > 0)",
+           errs)
+
+    # 2-3. depth_train pretrain on the three augment paths
+    pre_files = [f"pre_{n}_{CLI_DEPTH_ITERS:08d}.npz" for n in
+                 ("gen", "dis", "map", "optg", "optd")]
+    pre_files += ["index.html", "images/gen.png"] + [
+        f"images/gen_{it:08d}.png" for it in (10, 20, 30, 40)]
+    for name, run_dir, augment, extra, bare in (
+            ("pretrain step", run_a, None, [],
+             ("pretrain_update_raw", "float32")),
+            ("pretrain jax", tmp / "b", "jax", [],
+             ("pretrain_update", "float32")),
+            ("pretrain jax bf16", tmp / "c", "jax", ["--bf16"],
+             ("pretrain_update", "bfloat16"))):
+        rec = run_cli(torch, depth_train, common(name.replace(" ", "_"),
+                                                 run_dir / "pre") + [
+            "--mode", "pretrain", "--batch-size", str(CLI_BATCH),
+            "--max-iterations", str(CLI_DEPTH_ITERS)] + extra,
+            augment=augment)
+        fused = "fused into the training step" in rec["stdout"]
+        if fused != (augment is None):
+            raise AssertionError(f"cli {name}: in-step augment {fused}")
+        check_files(run_dir, pre_files, f"cli {name}")
+        check_pretrain_launches(name, rec)
+        check_resume(name, rec, run_dir / "pre", CLI_DEPTH_ITERS)
+        report(name, rec, bare_step(raw_rows, *bare, CLI_BATCH),
+               f"{bare[0]} {bare[1]} batch {CLI_BATCH}")
+
+    # 4. estimate3 from the step pretrain's snapshots and the VAE
+    rec = run_cli(torch, depth_train, common("estimate3", run_a / "pre") + [
+        "--mode", "estimate3", "--frac", "0.5", "--batch-size",
+        str(CLI_BATCH), "--max-iterations", str(CLI_DEPTH_ITERS)])
+    out = rec["stdout"]
+    if "Loading pretrained VAE parameters" not in out or \
+            f"Resume from iteration {CLI_DEPTH_ITERS}" not in out:
+        raise AssertionError("cli estimate3: did not load the pretrain "
+                             "and VAE snapshots")
+    errs = stdout_errors(out, r"Mean err: ([0-9.eE+-]+) ")
+    if len(errs) != CLI_DEPTH_ITERS // CLI_CUTS["image_save_iterations"] \
+            or not all(math.isfinite(e) for e in errs):
+        raise AssertionError(f"cli estimate3: Mean err {errs}")
+    check_files(run_a, [f"pre_est_{n}_{CLI_DEPTH_ITERS:08d}.npz" for n in
+                        ("gen", "dis", "map", "optg", "optd")]
+                + ["images/gen.avi", "images/_test.png"], "cli estimate3")
+    n = rec["iterations"]
+    if rec["launches"]["in_act_forward"] != joint * n or \
+            rec["launches"]["in_act_backward"] != 0:
+        raise AssertionError(f"cli estimate3: launches {rec['launches']} "
+                             f"over {n} iterations, want {joint} forward "
+                             "(the generator's no-grad pass) and no "
+                             "backward per iteration")
+    check_resume("estimate3", rec, run_a / "pre", CLI_DEPTH_ITERS, est=True)
+    report("estimate3 --frac 0.5", rec, None,
+           "no timing phase of post_update", errs)
+
+    # 5. convergence: pose_train on exps/synth.yaml, as recorded for the
+    # JAX package in docs/BENCHMARKS.md
+    rec = run_cli(torch, pose_train, [
+        "--config", str(root / "exps" / "synth.yaml"),
+        "--device", device_flag,
+        "--log", str(tmp / "logs" / "conv"),
+        "--snapshot-prefix", str(tmp / "conv" / "pre"),
+        "--max-iterations", str(CONV_ITERS)])
+    errs = stdout_errors(rec["stdout"], r"Mean error: ([0-9.eE+-]+)mm")
+    if len(errs) < 2 or not errs[-1] <= errs[0] / CONV_MIN_DROP or \
+            not errs[-1] <= CONV_MAX_MM:
+        raise AssertionError(f"cli convergence: evals {errs}, want the "
+                             f"last <= first / {CONV_MIN_DROP} and <= "
+                             f"{CONV_MAX_MM} mm")
+    report("pose_train exps/synth.yaml convergence", rec,
+           None, "no timing phase at synth.yaml widths", errs)
+    shutil.rmtree(tmp)
+    return rows
+
+
 def gpu_name_and_power():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1777,10 +2136,14 @@ def main() -> int:
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
     del trainer
     raw_rows = phase_raw_timing(torch, dev, hyp, train_sd)
+    cli_rows = phase_cli(torch, dev, raw_rows)
     path_launches = {"pretrain_update_raw": raw_launches,
                      "pretrain_update bfloat16": bf16_launches,
                      "pretrain_update remat": remat_launches,
                      f"pretrain_scan raw K={SCAN_K}": scan_launches}
+    for r in cli_rows:
+        path_launches[f"cli {r['run']} ({r['iterations']} iterations)"] = \
+            r["launches"]
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
@@ -1789,6 +2152,7 @@ def main() -> int:
     log("train checks " + json.dumps(train_checks))
     log("augment timing " + json.dumps(aug_rows))
     log("raw, bf16 and scan timing " + json.dumps(raw_rows))
+    log("cli phase " + json.dumps(cli_rows))
     log("training path checks " + json.dumps(
         {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
          "scan_ckpt": scan_checks, "launches_by_path": path_launches,

@@ -1,5 +1,6 @@
-"""LSPS in PyTorch and CUDA for an NVIDIA H100: depth -> pose serving and
-the VAE-GAN training updates.
+"""LSPS in PyTorch and CUDA for an NVIDIA H100: depth -> pose serving, the
+VAE-GAN training updates and the training CLIs (``cli/pose_train.py``,
+``cli/depth_train.py``).
 
 A second implementation of ``lsps_tpu`` (the JAX reference) that imports
 neither JAX nor ``lsps_tpu``.  Public functions keep the reference's

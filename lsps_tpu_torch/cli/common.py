@@ -1,0 +1,213 @@
+"""Shared plumbing of the port's training CLIs.
+
+The port's copy of ``lsps_tpu/cli/common.py``: the same flags and
+defaults, the evaluation class by config name, the datasets, and the
+chunk planner of ``--steps-per-call``.
+
+Differences from the JAX package's CLIs:
+
+* ``--device`` takes a CUDA index (the default 0) or ``cpu``; with no
+  CUDA device a run needs ``--device cpu`` and never falls back quietly.
+* The trainer starts from fresh weights drawn by
+  ``train.trainer.fresh_state_dict`` from a generator seeded with the
+  run's seed (the JAX package's distributions, not its draws).
+* ``host_fold_in`` and ``fold_chain`` have no counterpart: the JAX CLIs
+  fold one key per iteration, the port's draws (noise, dropout masks)
+  come from the trainer's ``torch.Generator``, seeded with ``seed + 7``
+  in ``pose_train`` and ``seed + 13`` in ``depth_train``, as the JAX
+  CLIs seed their keys.  A scan chunk of K steps draws what K single
+  steps draw.
+* ``--mesh-data`` other than 0 raises: data parallelism is the DDP item
+  of ``ROADMAP.md`` (queue 1 #12).
+* With ``LSPS_AUGMENT`` unset the loaders take the ``step`` augment
+  (``data/loader.py``), not ``host``: the card's machine has no cv2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from lsps_tpu_torch.config import NetConfig
+from lsps_tpu_torch.eval import (HandposeEvaluation, ICVLHandposeEvaluation,
+                                 NYUHandposeEvaluation)
+from lsps_tpu_torch.registry import lookup
+from lsps_tpu_torch.utils.skeleton import tables_for
+
+# import for the trainer's registration
+import lsps_tpu_torch.train.trainer  # noqa: F401
+
+MESH_ITEM = ("data-parallel training is not ported yet (ROADMAP.md, queue "
+             "1 #12: torch.distributed DDP); use --mesh-data 0")
+
+
+def _positive_int(value: str) -> int:
+    """argparse type for flags where 0 would otherwise be silently
+    replaced by a default through an ``x or default`` expression."""
+    n = int(value)
+    if n <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive integer, "
+                                         f"got {n}")
+    return n
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """Flags mirroring the reference CLIs (pose_train.py:29-34,
+    depth_train.py:26-34) and the JAX package's; ``--gpu`` is an alias
+    of ``--device``."""
+    p = argparse.ArgumentParser(
+        description=description,
+        epilog="LSPS_AUGMENT selects the training augment: step (the "
+               "default here: warp parameters from the loader, the image "
+               "work inside the training step) or jax (images made in the "
+               "loader, on the trainer's device).  The JAX package's "
+               "default, host, needs cv2 and is not ported; host and "
+               "native raise.")
+    p.add_argument("--device", "--gpu", type=str, default="0",
+                   help="CUDA device index, or 'cpu'")
+    p.add_argument("--resume", type=int, default=0)
+    p.add_argument("--frac", type=float, default=1.0,
+                   help="fraction of real labels to use")
+    p.add_argument("--config", type=str, required=True)
+    p.add_argument("--log", type=str, default="./logs")
+    p.add_argument("--seed", type=int, default=23455)
+    p.add_argument("--max-iterations", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="override config batch size")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace here")
+    p.add_argument("--orbax-dir", type=str, default=None,
+                   help="full-state checkpoints (nets + optimizers + draw "
+                        "generator + step) for resume; the name is the JAX "
+                        "package's, the files are torch.save's")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute for the conv-heavy updates (params/"
+                        "losses stay f32); same as hyperparameters."
+                        "compute_dtype: bfloat16")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="data-parallel mesh size; only 0 (one device) is "
+                        "ported")
+    p.add_argument("--steps-per-call", type=int, default=0,
+                   help="train K steps per trainer call (the trainer's "
+                        "*_scan: a Python loop over K pre-staged batches, "
+                        "the same draws as K single steps); chunks clip "
+                        "to the image/snapshot cadences.  1 = classic "
+                        "loop; 0 = auto (8 for the pose step, 1 for the "
+                        "depth steps, as in the JAX package)")
+    p.add_argument("--snapshot-prefix", type=str, default=None,
+                   help="override the config's snapshot_prefix (where "
+                        "checkpoints are read/written)")
+    p.add_argument("--sch-interval", type=_positive_int, default=None,
+                   help="override the LR scheduler step interval "
+                        "(reference: 1000 in pretrain/pose, 100 in "
+                        "estimate, depth_train.py:154-164)")
+    return p
+
+
+def device_of(opts) -> torch.device:
+    """The device ``--device`` names: ``cpu``, or CUDA device N."""
+    if str(opts.device).lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to train on the CPU")
+    return torch.device("cuda", int(opts.device))
+
+
+def check_mesh(opts) -> None:
+    if getattr(opts, "mesh_data", 0) != 0:
+        raise ValueError(f"--mesh-data {opts.mesh_data}: {MESH_ITEM}")
+
+
+def select_eval(config_path: str):
+    """Evaluation class + skeleton tables by config name
+    (pose_train.py:66-75)."""
+    color_idx, bones = tables_for(os.path.basename(config_path))
+    if "icvl" in config_path:
+        return ICVLHandposeEvaluation, color_idx, bones
+    if "nyu" in config_path:
+        return NYUHandposeEvaluation, color_idx, bones
+    return HandposeEvaluation, color_idx, bones
+
+
+def load_experiment(opts):
+    config = NetConfig(opts.config)
+    if opts.max_iterations is not None:
+        config.hyperparameters["max_iterations"] = opts.max_iterations
+    if getattr(opts, "bf16", False):
+        config.hyperparameters["compute_dtype"] = "bfloat16"
+    if getattr(opts, "snapshot_prefix", None):
+        config.snapshot_prefix = opts.snapshot_prefix
+    return config
+
+
+def make_datasets(config):
+    from lsps_tpu_torch.data.loader import get_dataset
+
+    ds_a = get_dataset(config.datasets["train_a"])
+    ds_b = get_dataset(config.datasets["train_b"])
+    ds_test = get_dataset(config.datasets["test_b"])
+    return ds_a, ds_b, ds_test
+
+
+def resolve_steps_per_call(opts, auto: int) -> int:
+    """Resolve ``--steps-per-call`` (0 = auto) to a concrete chunk size:
+    ``auto`` is the JAX package's default, 8 for the pose step and 1 for
+    the depth steps."""
+    return auto if opts.steps_per_call == 0 else max(1, opts.steps_per_call)
+
+
+def make_trainer(config, sch_interval: int, device, init_seed: int,
+                 seed: int):
+    """The config's trainer on ``device``, from fresh weights drawn with
+    ``init_seed``; its draws come from a generator seeded with
+    ``seed``."""
+    from lsps_tpu_torch.train.trainer import fresh_state_dict
+
+    hyp = config.hyperparameters
+    cls = lookup("trainer", hyp.get("trainer", "LSPSTrainer"))
+    return cls(hyp, fresh_state_dict(hyp, init_seed),
+               sch_interval=sch_interval, device=device, seed=seed)
+
+
+def chunk_len(it, k, cadences, max_iterations):
+    """Plan the next multi-step chunk: the longest n <= k such that no
+    cadence boundary (a step whose completion satisfies
+    ``(step + 1) % c == 0``) falls strictly inside steps
+    ``[it, it + n)``; a boundary may only land on the chunk's last step,
+    after which the caller runs its cadence work (images, snapshots,
+    eval) with the chunk's final state and outputs.
+
+    The CLIs scan only when the plan returns exactly ``k``; shorter plans
+    near boundaries fall back to single steps until re-aligned.
+    """
+    n = max(1, int(k))
+    for c in cadences:
+        if c and c > 0:
+            b = (it + c) // c * c - 1  # first step >= it ending on c
+            n = min(n, b - it + 1)
+    if max_iterations is not None:
+        n = min(n, max_iterations - it)
+    return max(n, 1)
+
+
+def host_metrics(mets) -> dict:
+    """A scan's stacked metrics (tensors on the trainer's device) as numpy
+    arrays, for the display rows of its steps."""
+    import numpy as np
+
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in mets.items()}
+
+
+def stack_inputs(items):
+    """Stack per-step inputs to a leading K axis (leaf by leaf for the
+    raw-mode warp-parameter tuples)."""
+    import numpy as np
+
+    if isinstance(items[0], tuple):
+        return tuple(np.stack([it[i] for it in items])
+                     for i in range(len(items[0])))
+    return np.stack(items)

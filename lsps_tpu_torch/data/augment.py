@@ -30,6 +30,9 @@ to +-180 degrees), so a source index depends on both output row and
 column: the serving kernel's separable ``frame[iy[r], ix[c]]`` gather
 does not fit it.  This module is plain PyTorch on whatever device its
 inputs are on; it replaces an XLA function, not a Pallas kernel.
+
+Beside it are the host ``normalize`` / ``denormalize`` of a crop and the
+default augment modes, as ``lsps_tpu/data/augment.py`` has them.
 """
 
 from __future__ import annotations
@@ -45,6 +48,23 @@ from lsps_tpu_torch.ops.kernels.warp import _f32
 
 PAD_VALUE = 0.0
 NV_VAL = 32000.0
+
+AUG_MODES_DEFAULT = ["none", "com", "rot"]  # dataset_hand2.py:139,271
+
+
+def normalize(img: np.ndarray, com, cube) -> np.ndarray:
+    """In-place host depth normalization to [-1, 1] around the CoM depth
+    (dataset_hand2.py:27-31): background (0) -> far plane, subtract com_z,
+    divide by half cube depth."""
+    img[img == 0] = com[2] + cube[2] / 2.0
+    img -= com[2]
+    img /= cube[2] / 2.0
+    return img
+
+
+def denormalize(img: np.ndarray, com, cube) -> np.ndarray:
+    """Inverse of :func:`normalize` (up to the background collapse)."""
+    return img * (cube[2] / 2.0) + com[2]
 
 
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:

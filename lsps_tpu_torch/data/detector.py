@@ -1,0 +1,375 @@
+"""CoM-based 3D hand cropping and pose sampling, in numpy (no cv2).
+
+The port's copy of the part of ``lsps_tpu/data/detector.py``'s
+``HandDetector`` that the dataset crops and the pose sampling use: CoM,
+bounds, crop, resize, ``crop_area_3d``, ``apply_crop_3d`` and the
+vectorized ``sample_random_poses``.  Every result is bit-equal to the JAX
+package's on the same inputs.
+
+The one cv2 call on that path, ``cv2.resize(..., INTER_NEAREST)``, is a
+numpy index gather here that picks the pixels cv2 picks: OpenCV's
+``resizeNN`` scales by ``inv = dst_size / src_size`` (a double) and reads
+source index ``min(floor(dst_index * (1 / inv)), src_size - 1)``.  The
+ratio ``src_size / dst_size`` rounds differently for some sizes and moves
+whole rows and columns.
+
+Not ported here (``ROADMAP.md``): the cv2 warps of the per-sample host
+augment (``recrop_hand``, ``move_com``, ``rotate_hand``, ``scale_hand``),
+the contour detector and tracker (``detect``, ``track``), the
+bilinear resizes (``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``) and the CoM
+refinement hook (``refine_net``), which no dataset of the JAX package
+selects.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from lsps_tpu_torch.data.transformations import rotate_points_3d
+
+
+def nearest_indices(src_size: int, dst_size: int) -> np.ndarray:
+    """Source index of each destination index of OpenCV's
+    nearest-neighbour resize along one axis."""
+    inv_scale = float(dst_size) / float(src_size)
+    idx = np.floor(np.arange(dst_size, dtype=np.float64) * (1.0 / inv_scale))
+    return np.minimum(idx.astype(np.int64), src_size - 1)
+
+
+def resize_nearest(src, dsize) -> np.ndarray:
+    """``cv2.resize(src, dsize, interpolation=cv2.INTER_NEAREST)`` with
+    ``dsize = (width, height)``, as a numpy gather."""
+    src = np.asarray(src)
+    w, h = int(dsize[0]), int(dsize[1])
+    if w <= 0 or h <= 0 or src.shape[0] == 0 or src.shape[1] == 0:
+        raise ValueError(f"cannot resize {src.shape[:2]} to {(w, h)}")
+    iy = nearest_indices(src.shape[0], h)
+    ix = nearest_indices(src.shape[1], w)
+    return src[iy[:, None], ix[None, :]]
+
+
+class HandDetector:
+    """Crop a hand around its center of mass."""
+
+    def __init__(self, dpt, fx, fy, importer=None):
+        dpt = np.asarray(dpt)
+        # clamp usable depth range (handdetector.py:59-63)
+        self.max_depth = min(6500, dpt.max())
+        self.min_depth = max(10, dpt.min())
+        self.dpt = dpt.copy()
+        self.dpt[self.dpt > self.max_depth] = 0.0
+        self.dpt[self.dpt < self.min_depth] = 0.0
+        self.fx = fx
+        self.fy = fy
+        self.importer = importer      # provides joint projection
+
+    # ------------------------------------------------------------------
+    def calculate_com(self, dpt) -> np.ndarray:
+        """Depth-weighted center of mass in (u, v, z[mm]): the z sum in
+        the frame's dtype, then the f64 divide (handdetector.py:93-110)."""
+        dc = np.asarray(dpt).copy()
+        dc[dc < self.min_depth] = 0
+        dc[dc > self.max_depth] = 0
+        num = np.count_nonzero(dc)
+        if num == 0:
+            return np.zeros(3)
+        ys, xs = np.nonzero(dc > 0)
+        com = np.array([xs.mean() * num, ys.mean() * num,
+                        float(dc.sum())])
+        return com / num
+
+    def check_image(self, tol) -> bool:
+        """Image has content iff std > tol (handdetector.py:112-122)."""
+        return float(np.std(self.dpt)) >= tol
+
+    def get_nd_value(self) -> float:
+        """Mode of the out-of-range depth values, the background fill
+        (handdetector.py:124-132)."""
+        below = self.dpt[self.dpt < self.min_depth]
+        above = self.dpt[self.dpt > self.max_depth]
+        vals = below if below.shape[0] > above.shape[0] else above
+        if vals.size == 0:
+            return 0.0
+        uniq, counts = np.unique(vals, return_counts=True)
+        return float(uniq[np.argmax(counts)])
+
+    # ------------------------------------------------------------------
+    def com_to_bounds(self, com, size) -> Tuple[int, int, int, int, float,
+                                                float]:
+        """3D cube around CoM -> 2D bbox + z range
+        (handdetector.py:206-228); ``floor(x + 0.5)`` rounding."""
+        if np.isclose(com[2], 0.0):
+            xstart = self.dpt.shape[0] // 4
+            xend = xstart + self.dpt.shape[0] // 2
+            ystart = self.dpt.shape[1] // 4
+            yend = ystart + self.dpt.shape[1] // 2
+            return xstart, xend, ystart, yend, self.min_depth, self.max_depth
+        zstart = com[2] - size[2] / 2.0
+        zend = com[2] + size[2] / 2.0
+        xstart = int(np.floor((com[0] * com[2] / self.fx - size[0] / 2.0)
+                              / com[2] * self.fx + 0.5))
+        xend = int(np.floor((com[0] * com[2] / self.fx + size[0] / 2.0)
+                            / com[2] * self.fx + 0.5))
+        ystart = int(np.floor((com[1] * com[2] / self.fy - size[1] / 2.0)
+                              / com[2] * self.fy + 0.5))
+        yend = int(np.floor((com[1] * com[2] / self.fy + size[1] / 2.0)
+                            / com[2] * self.fy + 0.5))
+        return xstart, xend, ystart, yend, zstart, zend
+
+    def com_to_transform(self, com, size, dsize=(128, 128)) -> np.ndarray:
+        """Affine crop transform from CoM (handdetector.py:230-260)."""
+        xstart, xend, ystart, yend, _, _ = self.com_to_bounds(com, size)
+        trans = np.eye(3)
+        trans[0, 2] = -xstart
+        trans[1, 2] = -ystart
+        wb, hb = xend - xstart, yend - ystart
+        if wb > hb:
+            scale = np.eye(3) * dsize[0] / float(wb)
+            sz = (dsize[0], hb * dsize[0] // wb)
+        else:
+            scale = np.eye(3) * dsize[1] / float(hb)
+            sz = (wb * dsize[1] // hb, dsize[1])
+        scale[2, 2] = 1
+        # the reference centers with sz components swapped
+        # (handdetector.py:254-255); reproduced as-is
+        xstart = int(np.floor(dsize[0] / 2.0 - sz[1] / 2.0))
+        ystart = int(np.floor(dsize[1] / 2.0 - sz[0] / 2.0))
+        off = np.eye(3)
+        off[0, 2] = xstart
+        off[1, 2] = ystart
+        return off @ scale @ trans
+
+    def get_crop(self, dpt, xstart, xend, ystart, yend, zstart, zend,
+                 thresh_z=True, background=0) -> np.ndarray:
+        """Crop bbox with out-of-image padding and z thresholding
+        (handdetector.py:262-298): nearer-than-cube pixels clamp to zstart,
+        farther-than-cube pixels go to 0."""
+        cropped = dpt[max(ystart, 0):min(yend, dpt.shape[0]),
+                      max(xstart, 0):min(xend, dpt.shape[1])].copy()
+        pad_y = (abs(ystart) - max(ystart, 0),
+                 abs(yend) - min(yend, dpt.shape[0]))
+        pad_x = (abs(xstart) - max(xstart, 0),
+                 abs(xend) - min(xend, dpt.shape[1]))
+        pads = ((pad_y, pad_x) if cropped.ndim == 2
+                else (pad_y, pad_x, (0, 0)))
+        cropped = np.pad(cropped, pads, mode="constant",
+                         constant_values=background)
+        if thresh_z:
+            msk1 = np.logical_and(cropped < zstart, cropped != 0)
+            msk2 = np.logical_and(cropped > zend, cropped != 0)
+            cropped[msk1] = zstart
+            cropped[msk2] = 0.0
+        return cropped
+
+    def resize_crop(self, crop, sz) -> np.ndarray:
+        """Resize the crop as the datasets do, nearest-neighbour
+        (handdetector.py:338-353)."""
+        return resize_nearest(crop, sz)
+
+    # ------------------------------------------------------------------
+    def crop_area_3d(self, com=None, size=(250, 250, 250), dsize=(128, 128),
+                     docom=False):
+        """Crop the hand in a metric 3D cube, scale-normalized to distance
+        (handdetector.py:384-492).
+
+        Returns (128x128 float32 crop, 3x3 transform M, com (u,v,z)).
+        """
+        if len(size) != 3 or len(dsize) != 2:
+            raise ValueError("size must be 3D and dsize 2D")
+        if com is None:
+            com = self.calculate_com(self.dpt)
+        com = np.asarray(com, np.float64).copy()
+
+        xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(com,
+                                                                      size)
+        cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend, zstart,
+                                zend)
+
+        if docom:  # re-center on the crop's own CoM (handdetector.py:415-428)
+            com = self.calculate_com(cropped)
+            if np.allclose(com, 0.0):
+                com[2] = cropped[cropped.shape[0] // 2,
+                                 cropped.shape[1] // 2]
+                if np.isclose(com[2], 0):
+                    com[2] = 300.0
+            com[0] += xstart
+            com[1] += ystart
+            xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(
+                com, size)
+            cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend,
+                                    zstart, zend)
+
+        wb, hb = xend - xstart, yend - ystart
+        # aspect-preserving destination size; py2 floor division
+        # (handdetector.py:449-454)
+        if wb > hb:
+            sz = (dsize[0], hb * dsize[0] // wb)
+        else:
+            sz = (wb * dsize[1] // hb, dsize[1])
+
+        trans = np.eye(3)
+        trans[0, 2] = -xstart
+        trans[1, 2] = -ystart
+        if cropped.shape[0] > cropped.shape[1]:
+            scale = np.eye(3) * sz[1] / float(cropped.shape[0])
+        else:
+            scale = np.eye(3) * sz[0] / float(cropped.shape[1])
+        scale[2, 2] = 1
+
+        rz = self.resize_crop(cropped, sz)
+
+        ret = np.ones(dsize, np.float32) * self.get_nd_value()
+        xs = int(np.floor(dsize[0] / 2.0 - rz.shape[1] / 2.0))
+        ys = int(np.floor(dsize[1] / 2.0 - rz.shape[0] / 2.0))
+        ret[ys:ys + rz.shape[0], xs:xs + rz.shape[1]] = rz
+        off = np.eye(3)
+        off[0, 2] = xs
+        off[1, 2] = ys
+        return ret, off @ scale @ trans, com
+
+    def apply_crop_3d(self, dpt, com, size, dsize, thresh_z=True,
+                      background=None):
+        """Crop an arbitrary image with the CoM cube
+        (handdetector.py:355-382)."""
+        xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(com,
+                                                                      size)
+        cropped = self.get_crop(dpt, xstart, xend, ystart, yend, zstart,
+                                zend, thresh_z, background or 0)
+        wb, hb = xend - xstart, yend - ystart
+        if wb > hb:
+            sz = (dsize[0], hb * dsize[0] // wb)
+        else:
+            sz = (wb * dsize[1] // hb, dsize[1])
+        rz = self.resize_crop(cropped, sz)
+        if background is None:
+            background = self.get_nd_value()
+        ret = np.ones(dsize, np.float32) * background
+        xs = int(np.floor(dsize[0] / 2.0 - rz.shape[1] / 2.0))
+        ys = int(np.floor(dsize[1] / 2.0 - rz.shape[0] / 2.0))
+        ret[ys:ys + rz.shape[0], xs:xs + rz.shape[1]] = rz
+        return ret
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def sample_random_poses(importer, rng, base_poses, base_com, base_cube,
+                            num_poses, nmax, aug_modes, retall=False,
+                            rot3d=False, sigma_com=None, sigma_sc=None,
+                            rot_range=None):
+        """Vectorized random pose-space augmentation
+        (handdetector.py:809-918): the five random draws happen up front
+        in the reference order on the same RandomState, then each mode's
+        arithmetic runs on its index subset as one batched expression."""
+        sigma_com = 10.0 if sigma_com is None else sigma_com
+        sigma_sc = 0.05 if sigma_sc is None else sigma_sc
+        rot_range = 180.0 if rot_range is None else rot_range
+
+        all_modes = ["none", "rot", "sc", "com", "rot+com", "com+rot",
+                     "rot+com+sc", "rot+sc+com", "sc+rot+com", "sc+com+rot",
+                     "com+sc+rot", "com+rot+sc"]
+        bad = [m for m in aug_modes if m not in all_modes]
+        if bad:
+            raise ValueError(f"unknown augmentation modes {bad}")
+
+        base_poses = np.asarray(base_poses, np.float32)
+        base_com = np.asarray(base_com, np.float32)
+        base_cube = np.asarray(base_cube, np.float32)
+        num_poses = int(num_poses)
+        p2use = int(min(base_poses.shape[0], nmax))
+
+        # the reference's draw order (handdetector.py:845-849)
+        modes = rng.randint(0, len(aug_modes), num_poses)
+        ridxs = rng.randint(0, p2use, num_poses)
+        off = rng.randn(num_poses, 3) * sigma_com
+        sc = np.fabs(rng.randn(num_poses) * sigma_sc + 1.0)
+        rot = rng.uniform(-rot_range, rot_range, size=(num_poses, 3))
+
+        if aug_modes == ["none"]:
+            norm = base_poses / (base_cube[:, 2] / 2.0)[:, None, None]
+            if retall:
+                return norm, base_com, base_cube
+            return norm
+
+        cube = base_cube[ridxs]                       # (N, 3)
+        com3d = base_com[ridxs]                       # (N, 3)
+        pose = base_poses[ridxs].astype(np.float32)   # (N, J, 3)
+        new_com = com3d.copy()
+        new_cube = cube.copy()
+        new_poses = np.zeros_like(pose)
+        mode_names = np.asarray(aug_modes)[modes]
+
+        def _rot2d_batch(poses_c, centers, angles):
+            """Rotate each pose's 2D projection around its center."""
+            j2 = importer.joint_3d_to_img(poses_c)      # (N, J, 3)
+            a = np.deg2rad(angles)[:, None]
+            ca, sa = np.cos(a), np.sin(a)
+            du = j2[..., 0] - centers[:, None, 0]
+            dv = j2[..., 1] - centers[:, None, 1]
+            ru = du * ca - dv * sa + centers[:, None, 0]
+            rv = du * sa + dv * ca + centers[:, None, 1]
+            out = np.stack([ru, rv, j2[..., 2]], axis=-1)
+            return importer.joint_img_to_3d(out)
+
+        m = mode_names == "com"
+        if m.any():  # handdetector.py:865-869
+            new_com[m] = com3d[m] + off[m]
+            new_poses[m] = ((pose[m] + com3d[m, None] - new_com[m, None])
+                            / (new_cube[m, 2] / 2.0)[:, None, None])
+
+        m = mode_names == "rot"
+        if m.any():  # handdetector.py:870-879
+            if not rot3d:
+                centers = importer.joint_3d_to_img(com3d[m])[:, :2]
+                r3 = _rot2d_batch(pose[m] + new_com[m, None], centers,
+                                  rot[m, 0])
+                new_poses[m] = ((r3 - new_com[m, None])
+                                / (new_cube[m, 2] / 2.0)[:, None, None])
+            else:
+                for i in np.nonzero(m)[0]:
+                    new_poses[i] = (rotate_points_3d(
+                        pose[i] + new_com[i], new_com[i], rot[i, 0],
+                        rot[i, 1], rot[i, 2]) - new_com[i]) / (
+                            new_cube[i, 2] / 2.0)
+
+        m = mode_names == "sc"
+        if m.any():  # handdetector.py:880-884
+            new_cube[m] = cube[m] * sc[m, None]
+            new_poses[m] = pose[m] / (new_cube[m, 2] / 2.0)[:, None, None]
+
+        m = mode_names == "none"
+        if m.any():  # handdetector.py:885-889
+            new_poses[m] = pose[m] / (new_cube[m, 2] / 2.0)[:, None, None]
+
+        m = np.isin(mode_names, ["rot+com", "com+rot"])
+        if m.any():  # handdetector.py:890-900
+            new_com[m] = com3d[m] + off[m]
+            pshift = pose[m] + com3d[m, None] - new_com[m, None]
+            if not rot3d:
+                centers = importer.joint_3d_to_img(new_com[m])[:, :2]
+                r3 = _rot2d_batch(pshift + com3d[m, None], centers, rot[m, 0])
+                new_poses[m] = ((r3 - com3d[m, None])
+                                / (new_cube[m, 2] / 2.0)[:, None, None])
+            else:
+                idx = np.nonzero(m)[0]
+                for k, i in enumerate(idx):
+                    new_poses[i] = (rotate_points_3d(
+                        pshift[k] + new_com[i], new_com[i], rot[i, 0],
+                        rot[i, 1], rot[i, 2]) - new_com[i]) / (
+                            new_cube[i, 2] / 2.0)
+
+        m = np.isin(mode_names, ["rot+com+sc", "rot+sc+com", "sc+rot+com",
+                                 "sc+com+rot", "com+sc+rot", "com+rot+sc"])
+        if m.any():  # handdetector.py:901-912
+            new_com[m] = com3d[m] + off[m]
+            pshift = (pose[m] + com3d[m, None] - new_com[m, None]) \
+                * sc[m, None, None]
+            if not rot3d:
+                centers = importer.joint_3d_to_img(new_com[m])[:, :2]
+                r3 = _rot2d_batch(pshift + com3d[m, None], centers, rot[m, 0])
+                new_poses[m] = ((r3 - com3d[m, None])
+                                / (new_cube[m, 2] / 2.0)[:, None, None])
+
+        if retall:
+            return new_poses, new_com, new_cube, rot
+        return new_poses

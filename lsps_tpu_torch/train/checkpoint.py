@@ -23,12 +23,18 @@ package loads in the other.
   save (the matching step).  Saves write the gen file last, so that a
   save cut short leaves no gen marker and resume falls back to the last
   complete set.
+
+:class:`FullStateStore` stands in for the JAX package's orbax store
+(``OrbaxStateStore``, behind ``--orbax-dir``): the whole training state
+of one step under ``<dir>/state_%08d/``, written synchronously with
+``torch.save``.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -254,3 +260,89 @@ def load_vae(trainer, snapshot_prefix: str, frac: float) -> bool:
     load_net(trainer.vae, load_npz(last))
     print(f"Loading pretrained VAE parameters from {last}")
     return True
+
+
+# ---------------------------------------------------------------------------
+# full training state (the CLIs' --orbax-dir)
+# ---------------------------------------------------------------------------
+
+_OPTIMIZERS = ("dis_opt", "gen_opt", "vae_opt")
+
+
+def full_state(trainer) -> dict:
+    """Everything a run needs to go on: the four nets, the three
+    optimizers (moments and both counts), the draw generator's state and
+    the trainer's step count."""
+    return {
+        "nets": {k: v.detach().cpu()
+                 for k, v in trainer.nets.state_dict().items()},
+        "opt": {name: {"mu": [m.detach().cpu() for m in opt.mu],
+                       "nu": [n.detach().cpu() for n in opt.nu],
+                       "count": opt.count,
+                       "sched_count": opt.sched_count}
+                for name, opt in ((n, getattr(trainer, n))
+                                  for n in _OPTIMIZERS)},
+        "generator": trainer.generator.get_state(),
+        "step": trainer.step,
+    }
+
+
+def load_full_state(trainer, state: dict) -> None:
+    """Put a :func:`full_state` back into ``trainer``, in place."""
+    trainer.nets.load_state_dict(state["nets"], strict=True)
+    with torch.no_grad():
+        for name in _OPTIMIZERS:
+            opt, saved = getattr(trainer, name), state["opt"][name]
+            for slot in ("mu", "nu"):
+                for t, a in zip(getattr(opt, slot), saved[slot]):
+                    t.copy_(a)
+            opt.count = int(saved["count"])
+            opt.sched_count = int(saved["sched_count"])
+    trainer.generator.set_state(state["generator"])
+    trainer.step = int(state["step"])
+
+
+class FullStateStore:
+    """One directory per saved step, ``<directory>/state_%08d/state.pt``:
+    ``save(trainer, step)``, ``latest_step()``, ``restore(trainer)``,
+    ``wait()``.  Saves are synchronous (``wait`` has nothing to join) and
+    land by renaming a finished directory, so that a save cut short
+    leaves no ``state_*`` entry."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"state_{step:08d}")
+
+    def save(self, trainer, step: int) -> None:
+        path = self._path(step)
+        tmp = path + ".partial"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(full_state(trainer), os.path.join(tmp, "state.pt"))
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is in flight."""
+
+    def latest_step(self) -> Optional[int]:
+        steps = []
+        for d in os.listdir(self.directory):
+            m = re.match(r"state_(\d{8})$", d)
+            if m and os.path.isdir(os.path.join(self.directory, d)):
+                steps.append(int(m.group(1)))
+        return max(steps) if steps else None
+
+    def restore(self, trainer, step: Optional[int] = None) -> Optional[int]:
+        """Load step ``step`` (the latest if None) into ``trainer``;
+        returns the step, or None if the store is empty."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        state = torch.load(os.path.join(self._path(step), "state.pt"),
+                           map_location="cpu", weights_only=True)
+        load_full_state(trainer, state)
+        return step

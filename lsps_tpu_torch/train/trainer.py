@@ -108,6 +108,22 @@ def _step_slice(x, i: int):
     return x[i]
 
 
+def fresh_state_dict(hyp: Mapping[str, Any], seed: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Fresh float32 weights of the four nets (``dis.* gen.* vae.*
+    map.*``, on the CPU) for ``LSPSTrainer``: each net built from ``hyp``
+    and drawn by ``ops.layers.reset_parameters`` from one generator
+    seeded with ``seed``, in the order dis, gen, vae, map.  The
+    distributions are the JAX package's ``init_state``; the draws are
+    not."""
+    g = torch.Generator().manual_seed(int(seed))
+    nets = nn.ModuleDict({k: build_model(hyp[k])
+                          for k in ("dis", "gen", "vae", "map")})
+    for net in nets.values():
+        L.reset_parameters(net, g)
+    return nets.state_dict()
+
+
 # ---------------------------------------------------------------------------
 @register("trainer", "LSPSTrainer")
 class LSPSTrainer:
@@ -133,8 +149,7 @@ class LSPSTrainer:
     restored to the state it had when the pass began, so the recompute
     draws the same noise and dropout masks.
 
-    Not ported: ``axis_name`` (data parallelism) and ``assemble_outputs``
-    (the viz strip).
+    Not ported: ``axis_name`` (data parallelism).
     """
 
     def __init__(self, hyperparameters: Dict[str, Any],
@@ -562,6 +577,21 @@ class LSPSTrainer:
                        noise=noise)
 
         return self._scan(step, (in_a, labels_a, in_b, labels_b), noise)
+
+    # ------------------------------------------------------------------
+    # visualization strip (lsps_trainer.py:264-276)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def assemble_outputs(images_a, images_b, network_outputs
+                         ) -> torch.Tensor:
+        """10-panel strip of the first sample's images side by side along
+        the width (NHWC axis 2), float32 on the CPU; the panels may be
+        tensors on any device or numpy arrays."""
+        x_aa, x_ba, x_ab, x_bb, x_aba, x_bab, dec_a, dec_b = network_outputs
+        panels = [images_a, x_aa, x_ab, x_aba, dec_a, dec_b,
+                  images_b, x_bb, x_ba, x_bab]
+        return torch.cat([torch.as_tensor(p)[0:1, :, :, 0:3].detach()
+                          .to("cpu", torch.float32) for p in panels], dim=2)
 
     # ------------------------------------------------------------------
     # checkpoints: the JAX package's .npz files (train/checkpoint.py)

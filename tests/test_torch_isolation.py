@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or ``lsps_tpu``.  Checked in a fresh
-interpreter, since this test process already holds JAX.  Also holds the
+``chip_smoke.py`` imports JAX or ``lsps_tpu``, nor any of ``cv2``,
+``PIL``, ``matplotlib``, ``tensorboardX`` and ``orbax``, which the card's
+machine lacks.  Checked in a fresh interpreter, since this test process
+already holds JAX and cv2.  Also holds the
 kernel wrappers (the two warp entries and the four norm kernels) to their
 contract: CPU tensors run the plain version, a launch counter exists and
 only kernel launches move it, other devices raise.
@@ -34,7 +36,9 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "lsps_tpu"))
-print(json.dumps({"names": names, "bad": bad}))
+absent = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "cv2", "PIL", "matplotlib", "tensorboardX", "orbax"))
+print(json.dumps({"names": names, "bad": bad, "absent": absent}))
 """
 
 
@@ -44,11 +48,41 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(out["names"]) >= 24
-    # the training augment and the checkpoints are among the modules held
+    assert len(out["names"]) >= 44
+    # the training augment, the checkpoints, the CLIs and the loader are
+    # among the modules held
     assert {"lsps_tpu_torch.data.augment",
-            "lsps_tpu_torch.train.checkpoint"} <= set(out["names"])
+            "lsps_tpu_torch.train.checkpoint",
+            "lsps_tpu_torch.cli.depth_train",
+            "lsps_tpu_torch.cli.pose_train",
+            "lsps_tpu_torch.data.loader"} <= set(out["names"])
     assert out["bad"] == []
+    assert out["absent"] == []
+
+
+@pytest.mark.parametrize("backend", ["jax", "step"])
+def test_loader_without_a_named_device_needs_the_card(backend, monkeypatch):
+    """The loader's device augment runs on the card unless a device is
+    named; with no card it raises rather than run on the CPU."""
+    from lsps_tpu_torch.data import loader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("LSPS_AUGMENT", backend)
+    ds = loader.get_dataset({
+        "seed": 1, "root": "", "subset": "train", "docom": False,
+        "augment": True, "sample_poses": 0, "joint_subset": "NYU",
+        "n_frames": 4, "n_joints": 36, "class_name": "dataset_hand_synth"})
+    if backend == "jax":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loader.get_data_loader(ds, 2, shuffle=True)
+    else:
+        # warp parameters only until the loader must make images
+        lp = loader.get_data_loader(ds, 2, shuffle=True)
+        assert lp.raw
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lp.disable_raw()
+    named = loader.get_data_loader(ds, 2, shuffle=True, device="cpu")
+    assert named.fast and named.raw == (backend == "step")
 
 
 def _inputs():
