@@ -85,7 +85,26 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     most a third of its first and at most 4.4 mm.  Each run prints its
     dataset seconds, ms per iteration over the loop beside the bare
     step's from phase 9, launches per iteration and eval errors;
-11. print the ``kernels`` line, the card's name and power limit, and last
+11. the serving surface, each with the launch counts set to 0 just before
+    and read just after: ``device_detect_batch`` over 256 seeded random
+    hands on the card against the CPU (run after phase 3: u and v equal, z
+    within the 128 float32 ulps that ``tests/test_torch_detect.py``
+    derives); the daemon (``serve.server.build_estimator`` from the CLI
+    phase's snapshots, a ``PoseServer`` at ``--batch-window-ms 2
+    --max-batch 64`` on an ephemeral port answering /healthz, JSON with
+    CoMs, npz with uint16 frames, raw JSON and 16 concurrent 1-frame
+    clients: joints equal to direct calls within 1e-3 mm, one
+    ``crop_normalize`` launch per dispatched batch, some batch coalesced;
+    requests/s and frames/s); export (a static batch-32 float32 frames
+    program and a symbolic-batch uint16 raw program through
+    ``torch.export``, saved, loaded and run: joints within 1e-3 mm of the
+    live estimator, CoMs equal, one launch per program call counted from
+    inside the program; then ``serve.server --artifact`` answering a
+    request; export and load seconds, ms per call beside the live call);
+    the latent walk (``cli.latent_walk.main``, 16 steps: the AVI and the
+    strip, finite frames, 15 IN + LeakyReLU launches, the walk within 1e-3
+    of the same walk on the CPU);
+12. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -1906,6 +1925,11 @@ def fresh_port_trainer(torch, dev, config_path):
     return LSPSTrainer(hyp, fresh_state_dict(hyp, 99), device=dev)
 
 
+def device_flag(dev):
+    """``--device`` of the CLIs for ``dev``: ``cpu`` or the CUDA index."""
+    return "cpu" if dev.type == "cpu" else str(dev.index or 0)
+
+
 def bare_step(raw_rows, update, dtype, batch, steps=1):
     row = next((r for r in raw_rows if r["update"] == update
                 and r["dtype"] == dtype and r["batch"] == batch), None)
@@ -1919,7 +1943,10 @@ def phase_cli(torch, dev, raw_rows):
     estimate3 from the pretrain and VAE snapshots; then the pose
     convergence of ``exps/synth.yaml``.  Each run must finish, write its
     files, launch the norm kernels as its updates give them, and leave
-    snapshots a fresh trainer resumes bit for bit."""
+    snapshots a fresh trainer resumes bit for bit.  Returns (the runs'
+    rows, the phase's directory, the cut config, the prefix of the step
+    pretrain's snapshots and the VAE), which the serving phases read and
+    ``main`` removes."""
     import shutil
 
     from lsps_tpu_torch.cli import depth_train, pose_train
@@ -1937,10 +1964,8 @@ def phase_cli(torch, dev, raw_rows):
     pre_fwd, pre_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
     rows = []
 
-    device_flag = "cpu" if dev.type == "cpu" else str(dev.index or 0)
-
     def common(name, prefix):
-        return ["--config", cfg, "--device", device_flag,
+        return ["--config", cfg, "--device", device_flag(dev),
                 "--log", str(tmp / "logs" / name),
                 "--snapshot-prefix", str(prefix)]
 
@@ -2071,7 +2096,7 @@ def phase_cli(torch, dev, raw_rows):
     # JAX package in docs/BENCHMARKS.md
     rec = run_cli(torch, pose_train, [
         "--config", str(root / "exps" / "synth.yaml"),
-        "--device", device_flag,
+        "--device", device_flag(dev),
         "--log", str(tmp / "logs" / "conv"),
         "--snapshot-prefix", str(tmp / "conv" / "pre"),
         "--max-iterations", str(CONV_ITERS)])
@@ -2083,8 +2108,607 @@ def phase_cli(torch, dev, raw_rows):
                              f"{CONV_MAX_MM} mm")
     report("pose_train exps/synth.yaml convergence", rec,
            None, "no timing phase at synth.yaml widths", errs)
-    shutil.rmtree(tmp)
-    return rows
+    return rows, tmp, cfg, run_a / "pre"
+
+
+# ---------------------------------------------------------------------------
+# the serving surface: detection card vs CPU, the daemon, export, the walk
+# ---------------------------------------------------------------------------
+
+COM_HANDS = 256
+COM_Z_ULPS = 128            # tests/test_torch_detect.py derives it
+DAEMON_WINDOW_MS = 2.0
+DAEMON_MAX_BATCH = 64
+DAEMON_CLIENTS = 16
+DAEMON_ROUNDS = 4           # rounds of DAEMON_CLIENTS concurrent requests
+DAEMON_SINGLE = 16          # requests one after another
+RATE_CLIENTS = (1, DAEMON_CLIENTS)  # concurrent clients of a rate window
+RATE_WINDOW_S = 4.0         # seconds per rate window
+RATE_WINDOWS = 2            # windows per client count: their spread
+EXPORT_BATCH = 32
+EXPORT_ITERS = 20
+WALK_STEPS = 16
+WALK_CPU_TOL = 1e-3         # card vs CPU, TF32 off: 16 residual blocks of
+                            # float32 sums in other orders, on tanh outputs
+
+
+def com_hands(n, seed):
+    """``n`` random hands (as ``tests/test_torch_detect.py`` draws them):
+    CoM x +-120 mm, y +-80 mm, z 500-1100 mm, rendered by the port's
+    ``render_hand_depth``."""
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.synthetic import render_hand_depth
+
+    cam = Camera.nyu()
+    rs = np.random.RandomState(seed)
+    frames = np.zeros((n, H, W), np.float32)
+    for i in range(n):
+        com3d = np.array([rs.uniform(-120, 120), rs.uniform(-80, 80),
+                          rs.uniform(500, 1100)], np.float32)
+        frames[i] = render_hand_depth(cam, com3d, 36, rs)[0]
+    return frames
+
+
+def phase_com(torch, dev, cam):
+    """``device_detect_batch`` over COM_HANDS seeded random hands on the
+    card and on the CPU: u and v equal, z within COM_Z_ULPS float32 ulps
+    of z, every hand detected.  Returns the worst z gap in ulps."""
+    from lsps_tpu_torch.serve.detect import device_detect_batch
+
+    t0 = time.perf_counter()
+    frames = com_hands(COM_HANDS, seed=0)
+    cubes = np.full((COM_HANDS, 3), CUBE_MM, np.float32)
+    render_s = time.perf_counter() - t0
+    card, cpu = [], []
+    for s in range(0, COM_HANDS, 32):
+        f, c = (torch.from_numpy(a[s:s + 32]) for a in (frames, cubes))
+        card.append(device_detect_batch(f.to(dev), c.to(dev), cam.fx,
+                                        cam.fy).cpu())
+        cpu.append(device_detect_batch(f, c, cam.fx, cam.fy))
+    card, cpu = torch.cat(card).numpy(), torch.cat(cpu).numpy()
+    if not (np.all(card[:, 2] > 0) and np.all(cpu[:, 2] > 0)):
+        raise AssertionError(f"CoM sweep: {np.sum(card[:, 2] <= 0)} hands "
+                             f"undetected on the card, "
+                             f"{np.sum(cpu[:, 2] <= 0)} on the CPU")
+    if not np.array_equal(card[:, :2], cpu[:, :2]):
+        raise AssertionError(f"CoM sweep: u, v card != CPU, max "
+                             f"{np.abs(card[:, :2] - cpu[:, :2]).max()} px")
+    gap = np.abs(card[:, 2] - cpu[:, 2]) / np.spacing(cpu[:, 2])
+    log(f"CoM sweep: {COM_HANDS} hands (rendered in {render_s:.1f} s), u, v "
+        f"card == CPU; z gap max {gap.max():.0f} float32 ulps, median "
+        f"{np.median(gap):.1f} (bound {COM_Z_ULPS}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if gap.max() > COM_Z_ULPS:
+        raise AssertionError(f"CoM sweep: z card vs CPU {gap.max()} ulps > "
+                             f"{COM_Z_ULPS}")
+    return float(gap.max())
+
+
+def http(url, path, body=None, npz=False):
+    """One request; the decoded JSON or npz response."""
+    import io
+    import urllib.request
+
+    data = None
+    if body is not None:
+        data = body if npz else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        raw = r.read()
+    return dict(np.load(io.BytesIO(raw))) if npz else json.loads(raw)
+
+
+def npz_body(**arrays):
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+@contextlib.contextmanager
+def serving(est, **kw):
+    """A daemon over ``est`` on an ephemeral port, in a thread: yields
+    (PoseServer, url); shut down after."""
+    import threading
+
+    from lsps_tpu_torch.serve import server as S
+
+    ps, httpd = S.make_server(est, port=0, **kw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield ps, f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        if ps.batcher is not None:
+            ps.batcher.close()
+
+
+def serve_config(cfg, prefix):
+    """A copy of the config ``cfg`` whose snapshot prefix is ``prefix``,
+    beside it: the daemon reads its snapshots from the config alone."""
+    import yaml
+
+    doc = yaml.safe_load(Path(cfg).read_text())
+    doc["train"]["snapshot_prefix"] = str(prefix)
+    path = Path(cfg).with_name("serve.yaml")
+    path.write_text(yaml.safe_dump(doc))
+    return str(path)
+
+
+# The rate windows' clients, a process of their own (stdlib only), so that
+# they share no interpreter lock with the daemon.  argv: url, window
+# seconds, windows per client count, the client counts joined by commas,
+# then the request bodies (1-frame npz files), which the clients take in
+# turns.  Prints one JSON object: per client count, per window, the
+# requests completed inside the window, failures and latencies in ms.
+RATE_CLIENT = r"""
+import json, sys, threading, time, urllib.request
+url, seconds, windows, counts = sys.argv[1], float(sys.argv[2]), \
+    int(sys.argv[3]), [int(c) for c in sys.argv[4].split(",")]
+bodies = [open(p, "rb").read() for p in sys.argv[5:]]
+
+def client(i, end, lat, bad):
+    k = i
+    while True:
+        t = time.perf_counter()
+        if t >= end:
+            return
+        req = urllib.request.Request(url + "/predict_npz",
+                                     data=bodies[k % len(bodies)])
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                ok = r.status == 200 and len(r.read()) > 0
+        except Exception:
+            ok = False
+        done = time.perf_counter()
+        if done <= end:
+            (lat if ok else bad).append((done - t) * 1e3)
+        k += 1
+
+# warm-up, not recorded: every client count's batch sizes once
+for n in counts:
+    end = time.perf_counter() + 1.0
+    threads = [threading.Thread(target=client, args=(i, end, [], []))
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+out = {}
+for n in counts:
+    out[n] = []
+    for _ in range(windows):
+        lat, bad = [], []
+        end = time.perf_counter() + seconds
+        threads = [threading.Thread(target=client, args=(i, end, lat, bad))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out[n].append({"requests": len(lat), "failed": len(bad),
+                       "ms": sorted(lat)})
+print(json.dumps(out))
+"""
+
+
+def rate_windows(url, bodies, tmp):
+    """The daemon's requests/s over RATE_WINDOWS windows of RATE_WINDOW_S
+    seconds at each of RATE_CLIENTS concurrent 1-frame clients, driven
+    from another process: {clients: [{"requests_per_s", "median_ms",
+    "p90_ms", "requests"}, ...]}.  Any failed request fails the phase."""
+    paths = []
+    for i, body in enumerate(bodies):
+        paths.append(tmp / f"rate_body_{i}.npz")
+        paths[-1].write_bytes(body)
+    n_windows = RATE_WINDOWS * len(RATE_CLIENTS)
+    res = subprocess.run(
+        [sys.executable, "-c", RATE_CLIENT, url, str(RATE_WINDOW_S),
+         str(RATE_WINDOWS), ",".join(map(str, RATE_CLIENTS)),
+         *map(str, paths)], capture_output=True, text=True,
+        timeout=(RATE_WINDOW_S + 1) * n_windows + 120)
+    for p in paths:
+        p.unlink()
+    if res.returncode:
+        raise AssertionError(f"daemon rate clients: exit {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    out = {}
+    for n, windows in json.loads(res.stdout).items():
+        out[int(n)] = []
+        for w in windows:
+            if w["failed"] or not w["requests"]:
+                raise AssertionError(f"daemon rate window, {n} clients: "
+                                     f"{w['failed']} failed, "
+                                     f"{w['requests']} answered")
+            ms = np.asarray(w["ms"])
+            out[int(n)].append({
+                "requests": w["requests"],
+                "requests_per_s": w["requests"] / RATE_WINDOW_S,
+                "median_ms": float(np.median(ms)),
+                "p90_ms": float(np.percentile(ms, 90))})
+    return out
+
+
+def phase_daemon(torch, dev, cfg, prefix, tmp):
+    """``serve.server.build_estimator`` from the CLI phase's snapshots and
+    a ``PoseServer`` at --batch-window-ms 2 --max-batch 64 on an ephemeral
+    port: /healthz, /predict JSON with CoMs, /predict_npz with whole-mm
+    uint16 frames, raw JSON, then DAEMON_SINGLE requests one after another
+    and DAEMON_ROUNDS rounds of DAEMON_CLIENTS concurrent 1-frame clients.
+    Joints equal direct predict_frames / predict_raw calls within
+    JOINTS_PLAIN_MM (TF32 off); crop_normalize launches once per
+    dispatched batch, and some batch coalesced more than one request.
+    Then the rates: ``rate_windows`` from a client process, one launch
+    per batch again.  Returns (estimator, a result row)."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.serve.server import build_estimator
+
+    t0 = time.perf_counter()
+    est = build_estimator(serve_config(cfg, prefix), frac=0.5, device=dev)
+    build_s = time.perf_counter() - t0
+    frames, coms = hand_frames(DAEMON_CLIENTS, np.random.RandomState(61))
+    cubes = np.full((len(frames), 3), CUBE_MM, np.float32)
+    u16 = frames.astype(np.uint16)
+    sizes = []
+    with serving(est, batch_window_ms=DAEMON_WINDOW_MS,
+                 max_batch=DAEMON_MAX_BATCH) as (ps, url):
+        run_group = ps.batcher._run_group
+
+        def recorded(f, c, k):
+            sizes.append(len(f))
+            return run_group(f, c, k)
+
+        ps.batcher._run_group = recorded
+        health = http(url, "/healthz")
+        if not (health["ok"] and health["microbatch"]
+                and health["joints"] == est.n_joints):
+            raise AssertionError(f"daemon /healthz: {health}")
+        WK.crop_normalize.launches = 0
+        batches0 = ps.batches
+        with tf32_off(torch):
+            got = {
+                "json": np.asarray(http(url, "/predict", {
+                    "frames": frames[:2].tolist(),
+                    "coms": coms[:2].tolist(),
+                    "cubes": cubes[:2].tolist()})["joints"], np.float32),
+                "npz_u16": http(url, "/predict_npz", npz_body(
+                    frames=u16[2:4], coms=coms[2:4], cubes=cubes[2:4]),
+                    npz=True)["joints"],
+            }
+            raw = http(url, "/predict", {"frames": frames[4:6].tolist()})
+            got["raw"] = np.asarray(raw["joints"], np.float32)
+
+            def one(i):
+                return http(url, "/predict_npz", npz_body(
+                    frames=u16[i:i + 1], coms=coms[i:i + 1],
+                    cubes=cubes[i:i + 1]), npz=True)["joints"]
+
+            single = [one(i % DAEMON_CLIENTS) for i in range(DAEMON_SINGLE)]
+            with Pool(DAEMON_CLIENTS) as pool:
+                conc = list(pool.map(one, list(range(DAEMON_CLIENTS))
+                                     * DAEMON_ROUNDS))
+            torch.cuda.synchronize()
+        launches = WK.crop_normalize.launches
+        dispatched = ps.batches - batches0
+        checked = len(sizes)
+        # the rates (TF32 as PyTorch's default): clients in another
+        # process, windows of seconds
+        rates = rate_windows(url, [npz_body(
+            frames=u16[i:i + 1], coms=coms[i:i + 1], cubes=cubes[i:i + 1])
+            for i in range(DAEMON_CLIENTS)], tmp)
+        torch.cuda.synchronize()
+        rate_launches = WK.crop_normalize.launches - launches
+        rate_sizes = sizes[checked:]
+        del sizes[checked:]
+    if launches != dispatched or launches != len(sizes) \
+            or rate_launches != len(rate_sizes):
+        raise AssertionError(f"daemon: {launches} crop_normalize launches "
+                             f"for {dispatched} dispatched batches "
+                             f"({len(sizes)} recorded); {rate_launches} for "
+                             f"{len(rate_sizes)} in the rate windows")
+    if max(sizes) < 2:
+        raise AssertionError(f"daemon: no request was coalesced, batches "
+                             f"{sizes}")
+    if not raw["detected"] == [True, True]:
+        raise AssertionError(f"daemon raw: detected {raw['detected']}")
+
+    with tf32_off(torch):
+        want = est.predict_frames(frames, coms, cubes).cpu().numpy()
+        want_raw = est.predict_raw(frames[4:6]).cpu().numpy()
+    # the direct call a request makes, from numpy to numpy, at batch 1
+    direct_ms = host_ms(torch, lambda: est.predict_frames(
+        u16[:1], coms[:1], cubes[:1]).cpu().numpy(), DAEMON_SINGLE)
+    worst = 0.0
+    for name, g, w in (("json", got["json"], want[:2]),
+                       ("npz uint16", got["npz_u16"], want[2:4]),
+                       ("raw", got["raw"], want_raw),
+                       *((f"client {i % DAEMON_CLIENTS}", j,
+                          want[i % DAEMON_CLIENTS:i % DAEMON_CLIENTS + 1])
+                         for i, j in enumerate(single + conc))):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"daemon {name}: joints {g.shape}")
+        err = float(np.abs(g - w).max())
+        worst = max(worst, err)
+        if err > JOINTS_PLAIN_MM:
+            raise AssertionError(f"daemon {name}: {err} mm from the direct "
+                                 f"call")
+    row = {"build_estimator_s": build_s, "batches": dispatched,
+           "direct_predict_frames_ms_b1": direct_ms,
+           "crop_normalize_launches": launches,
+           "batch_sizes": sorted(set(sizes)), "max_batch_seen": max(sizes),
+           "worst_joint_gap_mm": worst,
+           # 1-frame requests, so requests/s = frames/s
+           "rate_window_s": RATE_WINDOW_S, "rate_windows": rates,
+           "rate_window_batches": len(rate_sizes),
+           "rate_window_batch_sizes": sorted(set(rate_sizes))}
+    log(f"daemon: build_estimator {build_s:.1f} s; {dispatched} batches, "
+        f"{launches} crop_normalize launches, batch sizes "
+        f"{row['batch_sizes']}; direct predict_frames B=1 (numpy to "
+        f"numpy) {direct_ms:.3f} ms; joints vs direct calls <= "
+        f"{worst:.3g} mm (tol {JOINTS_PLAIN_MM})")
+    for n, windows in rates.items():
+        log(f"daemon, {n} client(s) in another process, "
+            f"{RATE_WINDOW_S} s windows: requests/s (= frames/s) "
+            f"{[w['requests_per_s'] for w in windows]}, median ms "
+            f"{[w['median_ms'] for w in windows]}, p90 ms "
+            f"{[w['p90_ms'] for w in windows]}")
+    return est, row
+
+
+def phase_export(torch, dev, est, tmp, serve_cfg):
+    """A static batch-32 float32 frames program and a symbolic-batch uint16
+    raw program, exported, saved, loaded back and run: joints within
+    JOINTS_PLAIN_MM of the live estimator and raw CoMs equal (TF32 off),
+    one crop_normalize launch per call counted from inside the program;
+    the symbolic raw program exported on the CPU by ``cli.export_model
+    --device cpu`` (config ``serve_cfg``), loaded onto the card and held
+    so too; then ``serve.server`` in --artifact mode serves the raw
+    artifact for one request.  Times: export and load seconds, ms per call beside the
+    live call.  Returns (launches by program, a result row)."""
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.serve import export as E
+    from lsps_tpu_torch.serve import server as S
+
+    b = EXPORT_BATCH
+    frames, coms = hand_frames(8, np.random.RandomState(67))
+    f = torch.from_numpy(np.tile(frames, (b // 8, 1, 1))).to(dev)
+    c = torch.from_numpy(np.tile(coms, (b // 8, 1))).to(dev)
+    cu = torch.full((b, 3), CUBE_MM, device=dev)
+    u16 = f.round().to(torch.uint16)
+    programs = {"static32_frames": (b, False, torch.float32),
+                "symbolic_u16_raw": (None, True, torch.uint16)}
+    row, launches, arts = {}, {}, {}
+    for name, (batch, raw, dtype) in programs.items():
+        path = str(tmp / f"{name}.pt2")
+        t0 = time.perf_counter()
+        exported = E.export_pose_program(est, batch=batch, frame_shape=(H, W),
+                                         raw=raw, frame_dtype=dtype)
+        export_s = time.perf_counter() - t0
+        E.save_pose_program(path, exported)
+        t0 = time.perf_counter()
+        art = E.ArtifactPoseEstimator(path)
+        load_s = time.perf_counter() - t0
+        arts[name] = (path, art)
+        sizes = (b,) if batch else (b, 5, 1)
+        WK.crop_normalize.launches = 0
+        with tf32_off(torch):
+            outs = [art.predict_raw(u16[:n], cu[:n], return_coms=True)
+                    if raw else art.predict_frames(f[:n], c[:n], cu[:n])
+                    for n in sizes]
+            torch.cuda.synchronize()
+            launches[name] = WK.crop_normalize.launches
+            for n, got in zip(sizes, outs):
+                if raw:
+                    gj, gc = got
+                    wj, wc = est.predict_raw(u16[:n], cu[:n],
+                                             return_coms=True)
+                    if not torch.equal(gc, wc):
+                        raise AssertionError(f"export {name} B={n}: CoMs "
+                                             f"differ from the live call")
+                else:
+                    gj = got
+                    wj = est.predict_frames(f[:n], c[:n], cu[:n])
+                err = float((gj - wj).abs().max())
+                if err > JOINTS_PLAIN_MM or not bool(gj.isfinite().all()):
+                    raise AssertionError(f"export {name} B={n}: {err} mm "
+                                         f"from the live estimator")
+        if launches[name] != len(sizes):
+            raise AssertionError(f"export {name}: {launches[name]} "
+                                 f"crop_normalize launches counted for "
+                                 f"{len(sizes)} program calls")
+
+        def call():
+            return (art.predict_raw(u16, cu) if raw
+                    else art.predict_frames(f, c, cu))
+
+        def live():
+            return (est.predict_raw(u16, cu) if raw
+                    else est.predict_frames(f, c, cu))
+
+        ms = [host_ms(torch, fn, EXPORT_ITERS) for fn in (live, call, call,
+                                                          live)]
+        # the same kernels? and what the device does per call
+        prof = {k: profile_kernels(torch, fn) for k, fn in (("program", call),
+                                                            ("live", live))}
+        row[name] = {"export_s": export_s, "load_s": load_s,
+                     "kernels_per_call": {k: sum(n for _, n in v[0].values())
+                                          for k, v in prof.items()},
+                     "device_ms": {k: v[1] for k, v in prof.items()},
+                     "file_mb": os.path.getsize(path) / 2 ** 20,
+                     "ms_per_call": (ms[1] + ms[2]) / 2,
+                     "live_ms_per_call": (ms[0] + ms[3]) / 2,
+                     "ms_runs": ms, "batch": b,
+                     "launches_per_call": launches[name] / len(sizes),
+                     "calls": len(sizes)}
+        log(f"export {name}: export {export_s:.1f} s, load {load_s:.1f} s, "
+            f"{row[name]['file_mb']:.1f} MiB; B={b}: "
+            f"{row[name]['ms_per_call']:.3f} ms per call, live "
+            f"{row[name]['live_ms_per_call']:.3f} ms (runs {ms}); "
+            f"kernels per call {row[name]['kernels_per_call']}, device ms "
+            f"{row[name]['device_ms']}; crop_normalize launches per program "
+            f"call {row[name]['launches_per_call']:.0f}")
+
+    # a program exported on the CPU (the export CLI with --device cpu),
+    # loaded onto the card: load_pose_program moves it there
+    from lsps_tpu_torch.cli import export_model
+
+    name, path = "cpu_symbolic_raw", str(tmp / "cpu_symbolic_raw.pt2")
+    t0 = time.perf_counter()
+    export_model.main(["--config", serve_cfg, "--frac", "0.5", "--symbolic",
+                       "--raw", "--device", "cpu", "--out", path])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = E.ArtifactPoseEstimator(path, device=dev)
+    load_s = time.perf_counter() - t0
+    sizes = (b, 5, 1)
+    WK.crop_normalize.launches = 0
+    with tf32_off(torch):
+        outs = [art.predict_raw(f[:n], cu[:n], return_coms=True)
+                for n in sizes]
+        torch.cuda.synchronize()
+        launches[name] = WK.crop_normalize.launches
+        for n, (gj, gc) in zip(sizes, outs):
+            wj, wc = est.predict_raw(f[:n], cu[:n], return_coms=True)
+            err = float((gj - wj).abs().max())
+            if gj.device != wj.device or not torch.equal(gc, wc) \
+                    or err > JOINTS_PLAIN_MM:
+                raise AssertionError(f"export {name} B={n}: on "
+                                     f"{gj.device}, CoMs equal "
+                                     f"{torch.equal(gc, wc)}, joints {err} "
+                                     f"mm from the live estimator")
+    if launches[name] != len(sizes):
+        raise AssertionError(f"export {name}: {launches[name]} "
+                             f"crop_normalize launches counted for "
+                             f"{len(sizes)} program calls")
+    ms = [host_ms(torch, fn, EXPORT_ITERS) for fn in (
+        lambda: est.predict_raw(f, cu), lambda: art.predict_raw(f, cu))]
+    row[name] = {"export_s": export_s, "load_s": load_s, "batch": b,
+                 "ms_per_call": ms[1], "live_ms_per_call": ms[0],
+                 "launches_per_call": launches[name] / len(sizes),
+                 "calls": len(sizes)}
+    log(f"export {name} (exported on the CPU, loaded on {dev}): export "
+        f"{export_s:.1f} s, load {load_s:.1f} s; B={b}: {ms[1]:.3f} ms per "
+        f"call, live {ms[0]:.3f} ms; joints within {JOINTS_PLAIN_MM} mm of "
+        f"the live estimator, CoMs equal; crop_normalize launches per call "
+        f"{row[name]['launches_per_call']:.0f}")
+
+    # serve.server --artifact: the loaded raw artifact answers a request
+    opts = S.parser().parse_args(["--artifact", arts["symbolic_u16_raw"][0],
+                                  "--device", device_flag(dev)])
+    art = S.load_estimator(opts, None)
+    with tf32_off(torch), serving(art) as (ps, url):
+        WK.crop_normalize.launches = 0
+        resp = http(url, "/predict_npz", npz_body(frames=frames[:3].astype(
+            np.uint16)), npz=True)
+        torch.cuda.synchronize()
+        launches["artifact daemon"] = WK.crop_normalize.launches
+        want = est.predict_raw(frames[:3].astype(np.uint16)).cpu().numpy()
+    err = float(np.abs(resp["joints"] - want).max())
+    if not resp["detected"].all() or err > JOINTS_PLAIN_MM or \
+            launches["artifact daemon"] != 1 or ps.batches != 1:
+        raise AssertionError(f"artifact daemon: detected "
+                             f"{resp['detected']}, {err} mm, launches "
+                             f"{launches['artifact daemon']}, batches "
+                             f"{ps.batches}")
+    log(f"artifact daemon: 3 raw frames answered, joints vs live <= "
+        f"{err:.3g} mm, {launches['artifact daemon']} crop_normalize launch")
+    return launches, row
+
+
+def phase_walk(torch, dev, cfg, prefix, tmp):
+    """``cli.latent_walk.main`` in process on the CLI phase's snapshot,
+    --steps 16, TF32 off, the IN + LeakyReLU launch counts set to 0 just
+    before and read just after: the AVI and the strip written, finite
+    walk frames, in_act_forward launched as the generator's blocks give
+    it (the two encodes and one decode of the 16 codes), no other norm
+    kernel; then the same encode and walk on a CPU copy of the generator
+    within WALK_CPU_TOL.  Returns (launches, a result row)."""
+    import copy
+    import io
+
+    from lsps_tpu_torch.cli import common as C
+    from lsps_tpu_torch.cli import latent_walk as LW
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.serve.inference import eval_mode, latent_walk
+
+    rec = {}
+    make_trainer, make_datasets = C.make_trainer, C.make_datasets
+
+    def keep_trainer(*a, **kw):
+        rec["trainer"] = make_trainer(*a, **kw)
+        return rec["trainer"]
+
+    def keep_datasets(*a, **kw):
+        rec["datasets"] = make_datasets(*a, **kw)
+        return rec["datasets"]
+
+    def keep_walk(gen, z0, z1, steps):
+        rec["codes"] = (z0, z1)
+        rec["out"] = latent_walk(gen, z0, z1, steps=steps)
+        return rec["out"]
+
+    out = tmp / "walk" / "walk.avi"
+    buf = io.StringIO()
+    zero_norm_launches(N)
+    t0 = time.perf_counter()
+    with tf32_off(torch), \
+            unittest.mock.patch.object(C, "make_trainer", keep_trainer), \
+            unittest.mock.patch.object(C, "make_datasets", keep_datasets), \
+            unittest.mock.patch.object(LW, "latent_walk", keep_walk), \
+            contextlib.redirect_stdout(buf):
+        LW.main(["--config", cfg, "--snapshot-prefix", str(prefix),
+                 "--device", device_flag(dev), "--steps", str(WALK_STEPS),
+                 "--out", str(out)])
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = norm_launches(N)
+    check_files(out.parent, ["walk.avi", "walk_strip.png"], "latent walk")
+    if "Resume from iteration" not in buf.getvalue():
+        raise AssertionError("latent walk: no snapshot resumed")
+    gcfg = rec["trainer"].hyp["gen"]
+    want = (2 * (gcfg["n_enc_res_blk"] + gcfg["n_enc_shared_blk"])
+            + gcfg["n_gen_shared_blk"] + 2 * gcfg["n_gen_res_blk"])
+    others = {k: v for k, v in launches.items() if k != "in_act_forward"}
+    if launches["in_act_forward"] != want or any(others.values()):
+        raise AssertionError(f"latent walk: launches {launches}, want "
+                             f"{want} in_act_forward and nothing else")
+    out_a, out_b = rec["out"]
+    if out_a.shape != (WALK_STEPS, 128, 128, 1) or not (
+            bool(out_a.isfinite().all()) and bool(out_b.isfinite().all())):
+        raise AssertionError(f"latent walk: frames {tuple(out_a.shape)}")
+    avi = out.read_bytes()
+    if avi[:4] != b"RIFF" or avi.count(b"00db") < 2 * WALK_STEPS:
+        raise AssertionError("latent walk: the AVI lacks its frames")
+
+    # the same encode and walk on a CPU copy of the generator
+    gen = copy.deepcopy(rec["trainer"].gen).cpu()
+    ds_test = rec["datasets"][2]
+    imgs = [torch.from_numpy(np.transpose(ds_test[i][0], (1, 2, 0))[None])
+            for i in (0, 1)]
+    with eval_mode(gen), torch.no_grad():
+        z0, z1 = gen.encode(*imgs)
+    cpu_a, cpu_b = latent_walk(gen, z0[0], z1[0], steps=WALK_STEPS)
+    code_err = max(float((a.cpu() - b[0]).abs().max())
+                   for a, b in zip(rec["codes"], (z0, z1)))
+    err = max(float((out_a.cpu() - cpu_a).abs().max()),
+              float((out_b.cpu() - cpu_b).abs().max()))
+    row = {"wall_s": wall_s, "steps": WALK_STEPS, "launches": launches,
+           "in_act_forward_want": want, "card_vs_cpu": err,
+           "codes_card_vs_cpu": code_err}
+    log(f"latent walk: {WALK_STEPS} steps in {wall_s:.1f} s (datasets, "
+        f"trainer, resume included); in_act_forward {want} launches; card "
+        f"vs CPU walk {err:.3g} (tol {WALK_CPU_TOL}), codes {code_err:.3g}")
+    if err > WALK_CPU_TOL:
+        raise AssertionError(f"latent walk: card vs CPU {err} > "
+                             f"{WALK_CPU_TOL}")
+    return launches, row
 
 
 def gpu_name_and_power():
@@ -2095,6 +2719,8 @@ def gpu_name_and_power():
 
 
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2118,6 +2744,7 @@ def main() -> int:
     warp_err = max(warp_err, phase_warp_random(torch, dev, cam))
     sd = seeded_state_dict(hyp, seed=0)
     launches, loaded_launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
+    com_gap = phase_com(torch, dev, cam)
     timing = phase_timing(torch, dev, hyp, sd)
     norm_errs = phase_norm(torch, dev)
     log("norm max |kernel - plain|: float32 "
@@ -2136,7 +2763,15 @@ def main() -> int:
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
     del trainer
     raw_rows = phase_raw_timing(torch, dev, hyp, train_sd)
-    cli_rows = phase_cli(torch, dev, raw_rows)
+    cli_rows, cli_tmp, cli_cfg, cli_prefix = phase_cli(torch, dev, raw_rows)
+    est, daemon_row = phase_daemon(torch, dev, cli_cfg, cli_prefix,
+                                   cli_tmp)
+    export_launches, export_rows = phase_export(
+        torch, dev, est, cli_tmp, serve_config(cli_cfg, cli_prefix))
+    del est
+    walk_launches, walk_row = phase_walk(torch, dev, cli_cfg, cli_prefix,
+                                         cli_tmp)
+    shutil.rmtree(cli_tmp)
     path_launches = {"pretrain_update_raw": raw_launches,
                      "pretrain_update bfloat16": bf16_launches,
                      "pretrain_update remat": remat_launches,
@@ -2144,6 +2779,7 @@ def main() -> int:
     for r in cli_rows:
         path_launches[f"cli {r['run']} ({r['iterations']} iterations)"] = \
             r["launches"]
+    path_launches[f"cli latent_walk --steps {WALK_STEPS}"] = walk_launches
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
@@ -2153,6 +2789,10 @@ def main() -> int:
     log("augment timing " + json.dumps(aug_rows))
     log("raw, bf16 and scan timing " + json.dumps(raw_rows))
     log("cli phase " + json.dumps(cli_rows))
+    log("serving surface " + json.dumps(
+        {"com_sweep_worst_z_ulps": com_gap, "daemon": daemon_row,
+         "export": export_rows, "latent_walk": walk_row,
+         "card": gpu_name_and_power()}))
     log("training path checks " + json.dumps(
         {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
          "scan_ckpt": scan_checks, "launches_by_path": path_launches,
@@ -2186,6 +2826,21 @@ def main() -> int:
         # the frames cold in L2, as in serving
         "cold_ms_by_batch": {b: warp_row("crop_normalize", b)["cold_ms"]
                              for b in WARP_BATCHES},
+        # launches on each serving path, each read around its own run:
+        # one per estimator call, dispatched daemon batch or call of an
+        # exported program
+        "launches_by_path": {
+            "serve phase (predict_frames, predict_raw)":
+                launches["crop_normalize"],
+            "daemon (micro-batched)": daemon_row["crop_normalize_launches"],
+            **{f"exported {k} program": v
+               for k, v in export_launches.items()
+               if k != "artifact daemon"},
+            "artifact daemon": export_launches["artifact daemon"]},
+        # ms per call of the exported programs beside the live call
+        "exported_ms_per_call": {
+            k: {"ms": r["ms_per_call"], "live_ms": r["live_ms_per_call"],
+                "batch": r["batch"]} for k, r in export_rows.items()},
         # the same kernel with its indices read from memory: the
         # gather-only check, off the main path
         "loaded_indices": {"name": "warp_normalize",

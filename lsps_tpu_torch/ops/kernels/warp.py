@@ -9,7 +9,8 @@ non-finite -> 0), then the near clamp to zstart, far -> 0, 0 -> zend, and
 * ``crop_normalize`` computes the indices, the tail parameters and the
   crop affine from the CoMs and cubes inside the kernel: one launch per
   batch.  Its plain version is ``crop_indices`` followed by
-  ``warp_normalize_reference``.
+  ``warp_normalize_reference``.  It is the registered PyTorch op
+  ``lsps::crop_normalize``, which ``torch.export`` traces.
 * ``warp_normalize`` takes the indices and tail parameters as tensors.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
@@ -271,26 +272,29 @@ def warp_normalize(frames: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     return out
 
 
-def crop_normalize(frames: torch.Tensor, coms: torch.Tensor,
-                   cubes: torch.Tensor, fx: float, fy: float,
-                   dsize: Tuple[int, int] = (128, 128)):
-    """(B, H, W) float32 or uint16 frames + (B, 3) float32 CoMs (u, v, z)
-    and cubes (mm) -> (crops (B, dh, dw) float32, Ms (B, 3, 3)), with
-    ``dsize = (dw, dh)``.  CUDA tensors launch the kernel once, index math
-    included (``crop_normalize.launches`` counts the launches); CPU tensors
-    run ``crop_normalize_reference``; any other device raises."""
-    if frames.device.type == "cpu":
-        return crop_normalize_reference(frames, coms, cubes, fx, fy, dsize)
-    _check_device(frames, "crop_normalize")
+# ``crop_normalize`` is the registered op ``lsps::crop_normalize``, so that
+# ``torch.export`` traces it (as one opaque node with the shapes of its fake
+# implementation) and an exported program calls it as the live path does.
+# Its CUDA implementation launches the kernel and counts the launch, so a
+# launch from inside an exported program counts too; its CPU
+# implementation is the plain version.
+
+@torch.library.custom_op("lsps::crop_normalize", mutates_args=(),
+                         device_types="cpu")
+def _crop_normalize_op(frames: torch.Tensor, coms: torch.Tensor,
+                       cubes: torch.Tensor, fx: float, fy: float, dw: int,
+                       dh: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return crop_normalize_reference(frames, coms, cubes, fx, fy, (dw, dh))
+
+
+@_crop_normalize_op.register_kernel("cuda")
+def _crop_normalize_cuda(frames, coms, cubes, fx, fy, dw, dh):
     _check_frames(frames, {"coms": coms, "cubes": cubes})
     b, h, w = frames.shape
     for name, t in (("coms", coms), ("cubes", cubes)):
         if t.shape != (b, 3) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be ({b}, 3) float32, not "
                              f"{tuple(t.shape)} {t.dtype}")
-    dw, dh = dsize
-    if dw < 1 or dh < 1:
-        raise ValueError(f"dsize must be positive, not {dsize}")
     out = torch.empty((b, dh, dw), dtype=torch.float32, device=frames.device)
     Ms = torch.empty((b, 3, 3), dtype=torch.float32, device=frames.device)
     if b == 0:
@@ -307,6 +311,32 @@ def crop_normalize(frames: torch.Tensor, coms: torch.Tensor,
                            f"error {rc}")
     crop_normalize.launches += 1
     return out, Ms
+
+
+@_crop_normalize_op.register_fake
+def _crop_normalize_fake(frames, coms, cubes, fx, fy, dw, dh):
+    b = frames.shape[0]
+    return (frames.new_empty((b, dh, dw), dtype=torch.float32),
+            frames.new_empty((b, 3, 3), dtype=torch.float32))
+
+
+def crop_normalize(frames: torch.Tensor, coms: torch.Tensor,
+                   cubes: torch.Tensor, fx: float, fy: float,
+                   dsize: Tuple[int, int] = (128, 128)):
+    """(B, H, W) float32 or uint16 frames + (B, 3) float32 CoMs (u, v, z)
+    and cubes (mm) -> (crops (B, dh, dw) float32, Ms (B, 3, 3)), with
+    ``dsize = (dw, dh)``, through the op ``lsps::crop_normalize``.  CUDA
+    tensors launch the kernel once, index math included
+    (``crop_normalize.launches`` counts the launches, also those from an
+    exported program); CPU tensors run ``crop_normalize_reference``; any
+    other device raises."""
+    if frames.device.type != "cpu":
+        _check_device(frames, "crop_normalize")
+    dw, dh = dsize
+    if dw < 1 or dh < 1:
+        raise ValueError(f"dsize must be positive, not {dsize}")
+    return _crop_normalize_op(frames, coms, cubes, float(fx), float(fy),
+                              int(dw), int(dh))
 
 
 warp_normalize.launches = 0

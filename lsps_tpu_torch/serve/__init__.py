@@ -1,1 +1,2 @@
-"""Depth -> pose serving: crop preprocessing, hand detection, inference."""
+"""Depth -> pose serving: crop preprocessing, hand detection, inference,
+the HTTP daemon and ``torch.export`` artifacts."""

@@ -43,6 +43,17 @@ def _masked_com(vals, weight, xs, ys):
     return com, n
 
 
+def _slice_counts(bins: torch.Tensor, size: int) -> torch.Tensor:
+    """Histogram of int64 ``bins`` over ``size`` bins, as a scatter-add
+    into a fixed-size tensor: integer counts, exact in any order.  Not
+    ``torch.bincount(bins, minlength=size)``: its length depends on the
+    data, so ``torch.export`` guards it against the example's batch, and
+    a symbolic-batch program then refuses any smaller batch."""
+    ones = torch.ones(1, dtype=torch.int64, device=bins.device)
+    return torch.zeros(size, dtype=torch.int64, device=bins.device
+                       ).scatter_add_(0, bins, ones.expand(bins.shape[0]))
+
+
 def device_detect_batch(frames: torch.Tensor, cubes: torch.Tensor,
                         fx: float, fy: float, steps: int = 65,
                         interior_min: int = 150,
@@ -73,12 +84,12 @@ def device_detect_batch(frames: torch.Tensor, cubes: torch.Tensor,
     inb = (xs >= 1) & (xs < w - 1) & (ys >= 1) & (ys < h - 1)
     interior = (smin == smax) & (s >= 0) & inb
 
-    # interior pixels per slice, all frames in one bincount: frame i's
+    # interior pixels per slice, all frames in one histogram: frame i's
     # slice k lands in bin i * (steps + 1) + k + 1, other pixels in bin
     # i * (steps + 1)
     bins = (torch.where(interior, s.to(torch.int64) + 1, 0)
             + torch.arange(b, device=dev)[:, None, None] * (steps + 1))
-    counts = torch.bincount(bins.reshape(-1), minlength=b * (steps + 1))
+    counts = _slice_counts(bins.reshape(-1), b * (steps + 1))
     counts = counts.reshape(b, steps + 1)[:, 1 + FIRST_SLICE:]
     oks = counts >= interior_min
     any_ok = oks.any(1)

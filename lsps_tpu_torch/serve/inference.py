@@ -1,15 +1,23 @@
-"""Depth -> pose inference on the card.
+"""Depth -> pose inference on the card, and the latent walk.
 
-Counterpart of ``lsps_tpu/serve/inference.py:PoseEstimator``: crop ->
-normalize -> ``dis.regress_b`` -> ``vae.decode`` -> denormalize.  The crop
-and normalize run in one launch of the ``crop_normalize`` CUDA kernel,
-index math included; the conv trunk and the MLP decode are PyTorch convs
-and matmuls, as they were XLA convs and dots in the JAX package.  Outputs
-are torch tensors on the estimator's device.
+Counterpart of ``lsps_tpu/serve/inference.py``: crop -> normalize ->
+``dis.regress_b`` -> ``vae.decode`` -> denormalize.  The crop and
+normalize run in one launch of the ``crop_normalize`` CUDA kernel, index
+math included; the conv trunk and the MLP decode are PyTorch convs and
+matmuls, as they were XLA convs and dots in the JAX package.  Outputs are
+torch tensors on the estimator's device.
+
+The two serving programs are ``nn.Module``s over the estimator's own nets
+and camera, which ``torch.export`` traces (``serve/export.py``):
+``FramesProgram`` ``(frames, coms, cubes) -> joints`` and ``RawProgram``
+``(frames, cubes) -> (joints, coms)`` with the CoM detected on the device.
+``PoseEstimator.predict_frames`` and ``predict_raw`` call the same
+modules, so that live and exported serving compute one function.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional
 
 import numpy as np
@@ -23,6 +31,51 @@ from lsps_tpu_torch.serve.detect import device_detect_batch
 from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
 
 DEFAULT_CUBE_MM = 300.0
+
+
+class FramesProgram(nn.Module):
+    """Raw (B, H, W) frames (float32 or uint16 mm) + (B, 3) CoMs + (B, 3)
+    cubes -> (B, J, 3) metric joints: the crop kernel, ``regress`` of
+    ``domain`` on ``dtype`` crops, ``vae.decode`` in float32."""
+
+    def __init__(self, dis: nn.Module, vae: nn.Module, camera: Camera,
+                 domain: str = "b", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if domain not in ("a", "b"):
+            raise ValueError(f"domain must be 'a' or 'b', not {domain!r}")
+        self.dis, self.vae = dis, vae
+        self.camera, self.domain, self.dtype = camera, domain, dtype
+
+    def crops_to_pose(self, crops: torch.Tensor) -> torch.Tensor:
+        """(B, 128, 128, 1) normalized crops -> (B, reg_dim) pose."""
+        regress = (self.dis.regress_b if self.domain == "b"
+                   else self.dis.regress_a)
+        _, post, _ = regress(crops.to(self.dtype))
+        return self.vae.decode(post.to(torch.float32))
+
+    def forward(self, frames: torch.Tensor, coms: torch.Tensor,
+                cubes: torch.Tensor) -> torch.Tensor:
+        crops, _ = crop_normalize_batch(frames, coms, cubes, self.camera.fx,
+                                        self.camera.fy)
+        pose = self.crops_to_pose(crops[..., None])
+        j = pose.reshape(pose.shape[0], -1, 3)
+        com3d = self.camera.img_to_3d(coms)
+        return j * (cubes[:, 2:3, None] / 2.0) + com3d[:, None, :]
+
+
+class RawProgram(nn.Module):
+    """Raw (B, H, W) frames + (B, 3) cubes -> ((B, J, 3) joints, (B, 3)
+    CoMs), the CoM detected on the device (a zero CoM where no depth
+    slice qualifies, and then degenerate joints)."""
+
+    def __init__(self, frames_program: FramesProgram):
+        super().__init__()
+        self.frames_program = frames_program
+
+    def forward(self, frames: torch.Tensor, cubes: torch.Tensor):
+        cam = self.frames_program.camera
+        coms = device_detect_batch(frames, cubes, cam.fx, cam.fy)
+        return self.frames_program(frames, coms, cubes), coms
 
 
 class PoseEstimator:
@@ -41,8 +94,6 @@ class PoseEstimator:
                  camera: Optional[Camera] = None, domain: str = "b",
                  dtype: torch.dtype = torch.float32, device=None):
         self.device = resolve_device(device)
-        if domain not in ("a", "b"):
-            raise ValueError(f"domain must be 'a' or 'b', not {domain!r}")
         nets = nn.ModuleDict({"dis": build_model(hyp["dis"]),
                               "vae": build_model(hyp["vae"])})
         nets.load_state_dict(state_dict, strict=True)
@@ -52,24 +103,13 @@ class PoseEstimator:
         self.camera = camera or Camera.nyu()
         self.domain = domain
         self.dtype = dtype
-        self._regress = (self.dis.regress_b if domain == "b"
-                         else self.dis.regress_a)
+        self.frames_program = FramesProgram(self.dis, self.vae, self.camera,
+                                            domain, dtype)
+        self.raw_program = RawProgram(self.frames_program)
 
-    # ------------------------------------------------------------------
-    def _crops_to_pose(self, crops: torch.Tensor) -> torch.Tensor:
-        """(B, 128, 128, 1) normalized crops -> (B, reg_dim) pose."""
-        _, post, _ = self._regress(crops.to(self.dtype))
-        return self.vae.decode(post.to(torch.float32))
-
-    def _frames_to_pose(self, frames, coms, cubes) -> torch.Tensor:
-        """Raw frames + CoMs -> metric joints.  uint16 frames go to the
-        kernel as they are and are read there as uint16."""
-        crops, _ = crop_normalize_batch(frames, coms, cubes, self.camera.fx,
-                                        self.camera.fy)
-        pose = self._crops_to_pose(crops[..., None])
-        j = pose.reshape(pose.shape[0], -1, 3)
-        com3d = self.camera.img_to_3d(coms)
-        return j * (cubes[:, 2:3, None] / 2.0) + com3d[:, None, :]
+    @property
+    def n_joints(self) -> int:
+        return self.vae.input_dim // 3
 
     def _frames(self, frames) -> torch.Tensor:
         """uint16 millimetre frames pass through as uint16; everything else
@@ -87,14 +127,14 @@ class PoseEstimator:
     @torch.inference_mode()
     def predict_crops(self, crops) -> torch.Tensor:
         """Normalized (B, 128, 128, 1) crops -> (B, J*3) normalized pose."""
-        return self._crops_to_pose(self._f32(crops))
+        return self.frames_program.crops_to_pose(self._f32(crops))
 
     @torch.inference_mode()
     def predict_frames(self, frames, coms, cubes) -> torch.Tensor:
         """Raw (B, H, W) frames + (B, 3) CoMs + (B, 3) cubes -> (B, J, 3)
         metric joints (mm).  ``frames`` may be uint16 millimetre depth."""
-        return self._frames_to_pose(self._frames(frames), self._f32(coms),
-                                    self._f32(cubes))
+        return self.frames_program(self._frames(frames), self._f32(coms),
+                                   self._f32(cubes))
 
     def predict_frame(self, frame, com, cube) -> torch.Tensor:
         return self.predict_frames(torch.as_tensor(frame)[None],
@@ -112,8 +152,37 @@ class PoseEstimator:
         if cubes is None:
             cubes = torch.full((frames.shape[0], 3), DEFAULT_CUBE_MM,
                                dtype=torch.float32, device=self.device)
-        cubes = self._f32(cubes)
-        coms = device_detect_batch(frames, cubes, self.camera.fx,
-                                   self.camera.fy)
-        joints = self._frames_to_pose(frames, coms, cubes)
+        joints, coms = self.raw_program(frames, self._f32(cubes))
         return (joints, coms) if return_coms else joints
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """``module`` in eval mode inside the block, its own mode after.  The
+    JAX package's ``encode`` and ``decode`` default to ``train=False``;
+    the port's modules follow their mode (noise and dropout only in
+    training), and a trainer keeps its nets in training mode."""
+    was = module.training
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train(was)
+
+
+def latent_walk(gen: nn.Module, z_start: torch.Tensor, z_end: torch.Tensor,
+                steps: int = 16):
+    """Decode an interpolation path through the generator's shared latent
+    (the reference's generative result, README.md:25-26): ``steps`` codes
+    ``(1 - t) z_start + t z_end`` for t evenly over [0, 1], decoded in eval
+    mode without gradients (the caller's mode is restored after).
+
+    z_*: (H, W, C) shared-latent maps (from ``gen.encode``).  Returns
+    ``(out_a, out_b)``, tensors of shape (steps, H', W', 1) on the codes'
+    device, one per domain.
+    """
+    ts = torch.linspace(0.0, 1.0, steps, dtype=z_start.dtype,
+                        device=z_start.device)[:, None, None, None]
+    zs = (1 - ts) * z_start[None] + ts * z_end[None]
+    with eval_mode(gen), torch.no_grad():
+        return gen.decode(zs)

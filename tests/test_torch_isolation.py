@@ -1,11 +1,14 @@
-"""The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or ``lsps_tpu``, nor any of ``cv2``,
-``PIL``, ``matplotlib``, ``tensorboardX`` and ``orbax``, which the card's
-machine lacks.  Checked in a fresh interpreter, since this test process
-already holds JAX and cv2.  Also holds the
-kernel wrappers (the two warp entries and the four norm kernels) to their
+"""The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and none
+of the root scripts that drive it on the card (``chip_smoke.py``,
+``warp_sweep.py``, ``detect_hist.py``) imports JAX or ``lsps_tpu``, nor
+any of ``cv2``, ``PIL``, ``matplotlib``, ``tensorboardX`` and ``orbax``,
+which the card's machine lacks.  Checked in a fresh interpreter, since
+this test process already holds JAX and cv2.  Also holds the kernel
+wrappers (the two warp entries and the four norm kernels) to their
 contract: CPU tensors run the plain version, a launch counter exists and
-only kernel launches move it, other devices raise.
+only kernel launches move it, other devices raise; and the crop warp is
+the registered op ``lsps::crop_normalize``, whose fake implementation
+gives the shapes for a symbolic batch.
 """
 
 import json
@@ -33,7 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(lsps_tpu_torch.__path__,
                                                 "lsps_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, detect_hist, warp_sweep
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "lsps_tpu"))
 absent = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -48,14 +51,20 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(out["names"]) >= 44
-    # the training augment, the checkpoints, the CLIs and the loader are
+    assert len(out["names"]) >= 49
+    # the training augment, the checkpoints, the CLIs, the loader, the
+    # daemon, the export, the latent walk and the checkpoint loader are
     # among the modules held
     assert {"lsps_tpu_torch.data.augment",
             "lsps_tpu_torch.train.checkpoint",
             "lsps_tpu_torch.cli.depth_train",
             "lsps_tpu_torch.cli.pose_train",
-            "lsps_tpu_torch.data.loader"} <= set(out["names"])
+            "lsps_tpu_torch.data.loader",
+            "lsps_tpu_torch.serve.server",
+            "lsps_tpu_torch.serve.export",
+            "lsps_tpu_torch.train.torch_convert",
+            "lsps_tpu_torch.cli.export_model",
+            "lsps_tpu_torch.cli.latent_walk"} <= set(out["names"])
     assert out["bad"] == []
     assert out["absent"] == []
 
@@ -220,3 +229,29 @@ def test_norm_kernel_source_is_built():
                  "lsps_in_res_bwd"):
         assert f'extern "C" int {name}(' in src
         assert name in N._SIGNATURES
+
+
+def test_crop_is_a_registered_op_with_a_fake():
+    """``crop_normalize`` goes through ``torch.ops.lsps.crop_normalize``:
+    on the CPU its implementation is the plain version, and under a fake
+    tensor mode with a symbolic batch its fake gives (B, dh, dw) crops and
+    (B, 3, 3) affines in float32, with no launch counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    frames, coms, cubes = _crop_inputs()
+    crops, Ms = torch.ops.lsps.crop_normalize(frames, coms, cubes, 588.0,
+                                              587.0, 16, 12)
+    want, _ = W.crop_normalize_reference(frames, coms, cubes, 588.0, 587.0,
+                                         (16, 12))
+    assert torch.equal(crops, want)
+    before = W.crop_normalize.launches
+    with FakeTensorMode(shape_env=ShapeEnv()) as mode:
+        fake = [mode.from_tensor(t, static_shapes=False)
+                for t in (frames, coms, cubes)]
+        c, m = W.crop_normalize(*fake, 588.0, 587.0, (16, 12))
+        assert c.dtype == m.dtype == torch.float32
+        assert not isinstance(c.shape[0], int)
+        assert tuple(c.shape[1:]) == (12, 16) and tuple(m.shape[1:]) == (3, 3)
+        assert c.shape[0] == fake[0].shape[0] == m.shape[0]
+    assert W.crop_normalize.launches == before

@@ -2,11 +2,28 @@
 
 Both estimators get the same JAX-initialised weights (the port through
 ``from_jax_params``) and the same ``render_hand_depth`` frames.
-Tolerances, in mm of metric joints: 1e-3 for ``predict_frames`` and
-``predict_frame`` (bit-equal crops; float32 convs summed in another
-order, about 1e-5 relative on outputs near 800 mm) and 5e-3 for
-``predict_raw``, whose detected CoMs differ by up to 2e-3 px/mm (see
-test_torch_detect.py) and carry that into the joints.
+Tolerances, in mm of metric joints: 1e-3 (``FRAMES_MM``) for
+``predict_frames`` and ``predict_frame`` (bit-equal crops; float32 convs
+summed in another order, about 1e-5 relative on outputs near 800 mm).
+
+``predict_raw`` detects the CoM first, and the detected CoMs agree as
+``test_torch_detect.py`` derives: u, v equal, z within ``COM_Z_ULPS``
+float32 ulps of z, so |dz| <= d = COM_Z_ULPS * spacing(z).  The joints are
+``j * cube/2 + img_to_3d(com)``: through ``img_to_3d`` (x = (u - ux) z /
+fx, y = +-(v - uy) z / fy, z) a depth error d moves a joint by at most
+d * (1 + |u - ux| / fx + |v - uy| / fy).  The crop moves too: its values
+are ``(depth - com_z) / half``, so the regressor's input shifts by
+d / half and the joints by S * d, where S is the regressor's sensitivity
+to the CoM's depth through the crop.  ``test_predict_raw_matches_jax``
+measures S on these weights by a finite difference of ``COM_Z_ULPS``
+ulps of z (it read 0.0078: one float32 rounding of the joints over d, so
+the regressor's own share is smaller still) and holds it under
+``CROP_SENSITIVITY``, that reading rounded up.  So a raw joint is held within d * (1 + |u - ux| /
+fx + |v - uy| / fy + CROP_SENSITIVITY) + FRAMES_MM
+(``raw_joint_tolerance``): 0.009-0.011 mm at 800 mm, over the first
+``RAW_HANDS`` hands of ``test_torch_detect.sweep_hands`` and three fixed
+ones.  (It was 5e-3 mm, from a CoM tolerance of 2e-3 mm that held for
+the nine fixed hands only.)
 """
 
 import numpy as np
@@ -23,6 +40,7 @@ from lsps_tpu.serve.inference import PoseEstimator as JaxEstimator
 from lsps_tpu_torch.data.camera import Camera as PortCamera
 from lsps_tpu_torch.serve.inference import PoseEstimator
 from lsps_tpu_torch.weights import from_jax_params
+from test_torch_detect import COM_Z_ULPS, assert_coms_match, sweep_hands
 
 torch.set_num_threads(1)
 
@@ -31,7 +49,19 @@ PORT_CAM = PortCamera.nyu()
 HYP = default_hyperparameters(reg_dim=108, small=True)
 HYP["dis"]["ch"] = 4
 FRAMES_MM = 1e-3
-RAW_MM = 5e-3
+CROP_SENSITIVITY = 0.01   # mm of joint per mm of CoM depth, via the crop
+RAW_HANDS = 16            # the first hands of the detection sweep
+
+
+def raw_joint_tolerance(coms, cam=CAM):
+    """(B, 1, 1) per-frame bound on |port - JAX| raw-path joints, from the
+    JAX CoMs (u, v, z) of the frames and the camera (see the module
+    docstring)."""
+    coms = np.asarray(coms, np.float32)
+    d = COM_Z_ULPS * np.spacing(np.abs(coms[:, 2]))
+    lever = (1 + np.abs(coms[:, 0] - cam.ux) / cam.fx
+             + np.abs(coms[:, 1] - cam.uy) / cam.fy + CROP_SENSITIVITY)
+    return (d * lever + FRAMES_MM)[:, None, None]
 
 
 @pytest.fixture(scope="module")
@@ -80,18 +110,40 @@ def test_predict_crops_matches_jax(pair):
 
 
 def test_predict_raw_matches_jax(pair):
+    """The seeded hands of the detection sweep plus the fixed ones and an
+    empty frame: CoMs as ``test_torch_detect`` bounds them, joints within
+    ``raw_joint_tolerance``; the measured crop sensitivity stays under
+    ``CROP_SENSITIVITY``."""
     jest, test = pair
-    frames, _, cubes = _frames(3, seed=8)
-    frames = np.concatenate([frames, np.zeros((1, 480, 640), np.float32)])
-    cubes = np.concatenate([cubes, cubes[:1]])
+    fixed, _, _ = _frames(3, seed=8)
+    frames = np.concatenate([sweep_hands()[:RAW_HANDS], fixed,
+                             np.zeros((1, 480, 640), np.float32)])
+    cubes = np.full((len(frames), 3), 300.0, np.float32)
     want_j, want_c = jest.predict_raw(frames, cubes, return_coms=True)
     got_j, got_c = test.predict_raw(frames, cubes, return_coms=True)
-    np.testing.assert_allclose(got_c.numpy(), want_c, rtol=0, atol=2e-3)
-    np.testing.assert_array_equal(got_c[3].numpy(), 0.0)
-    np.testing.assert_allclose(got_j.numpy(), want_j, rtol=0, atol=RAW_MM)
+    assert_coms_match(got_c.numpy(), want_c)
+    np.testing.assert_array_equal(got_c[-1].numpy(), 0.0)
+    tol = raw_joint_tolerance(want_c)
+    gap = np.abs(got_j.numpy() - want_j)
+    assert np.all(gap[:-1] <= tol[:-1]), (gap[:-1] / tol[:-1]).max()
+    # the empty frame: both CoMs are zero, so its joints agree as the
+    # with-CoM path's do
+    np.testing.assert_allclose(got_j[-1].numpy(), want_j[-1], rtol=0,
+                               atol=FRAMES_MM, equal_nan=True)
     # default 300 mm cubes
-    np.testing.assert_allclose(test.predict_raw(frames[:2]).numpy(),
-                               want_j[:2], rtol=0, atol=RAW_MM)
+    assert np.all(np.abs(test.predict_raw(frames[:2]).numpy() - want_j[:2])
+                  <= tol[:2])
+    # the regressor's sensitivity to the CoM's depth through the crop
+    coms = want_c[:-1]
+    d = COM_Z_ULPS * np.spacing(coms[:, 2])
+    moved = coms.copy()
+    moved[:, 2] += d
+    j0 = test.predict_frames(frames[:-1], coms, cubes[:-1]).numpy()
+    j1 = test.predict_frames(frames[:-1], moved, cubes[:-1]).numpy()
+    geo = (PORT_CAM.img_to_3d(torch.from_numpy(moved))
+           - PORT_CAM.img_to_3d(torch.from_numpy(coms))).numpy()
+    sens = (np.abs(j1 - j0 - geo[:, None]).max((1, 2)) / d).max()
+    assert sens <= CROP_SENSITIVITY, sens
 
 
 def test_uint16_frames_identical_to_float32(pair):
