@@ -85,7 +85,25 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     most a third of its first and at most 4.4 mm.  Each run prints its
     dataset seconds, ms per iteration over the loop beside the bare
     step's from phase 9, launches per iteration and eval errors;
-11. the serving surface, each with the launch counts set to 0 just before
+11. the real-data path at the widths and batch sizes of
+    ``exps/nnyu.yaml`` and ``exps/nicvl.yaml``: NYU and ICVL
+    mini-datasets written as PNGs by a writer here that cycles the five
+    scanline filters (64 + 64 NYU training frames, 32 test frames, 64 ICVL
+    training frames and 8 in each test sequence, hands rendered by the
+    port's ``render_hand_depth``), each split imported fresh and again
+    from its cache (held equal; decode and import frames/s), the native
+    library built (a failed build fails the run), each augment backend's
+    loader ms per batch, ``pose_train`` on the NYU split, ``depth_train
+    --mode pretrain`` under ``host``, ``native`` and ``step`` and
+    ``--mode estimate3`` under ``host`` with its test-set evaluation, and
+    ``exps/nicvl.yaml`` pretrain under ``host``, each with the norm
+    kernels' launch counts set to 0 just before and read just after (44 /
+    30 per pretrain iteration, 14 forward and no backward per estimate3
+    iteration); then ``host`` against ``native`` over one epoch (labels
+    within 1e-4, under 1e-3 of the pixels picked differently).  The cuts
+    (iterations, ``sample_poses``, cadences, frames) are on the phase's
+    line;
+12. the serving surface, each with the launch counts set to 0 just before
     and read just after: ``device_detect_batch`` over 256 seeded random
     hands on the card against the CPU (run after phase 3: u and v equal, z
     within the 128 float32 ulps that ``tests/test_torch_detect.py``
@@ -104,7 +122,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     the latent walk (``cli.latent_walk.main``, 16 steps: the AVI and the
     strip, finite frames, 15 IN + LeakyReLU launches, the walk within 1e-3
     of the same walk on the CPU);
-12. print the ``kernels`` line, the card's name and power limit, and last
+13. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -263,17 +281,19 @@ def host_ms(torch, fn, iters, warmup=3):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_kernels(torch, fn, iters=10, tries=3):
+def profile_kernels(torch, fn, iters=10, tries=6):
     """Device time by kernel name over ``iters`` calls of ``fn``, from
     torch.profiler: ({name: (ms per call, launches per call)}, device ms
     per call, wall ms per call).  A trace that holds no device event at
-    all is taken again, up to ``tries`` times: the profiler on the card's
-    machine has returned an empty trace for a call that launches a
-    kernel, which the same call traced in every other run."""
-    for _ in range(tries):
+    all is taken again (and logged), up to ``tries`` times: the profiler
+    on the card's machine has returned an empty trace for a call that
+    launches a kernel, three times in a row once, which the same call
+    traced in every other run."""
+    for attempt in range(tries):
         by_name, dev_ms, wall = _profile_once(torch, fn, iters)
         if by_name:
             break
+        log(f"profiler: an empty trace (attempt {attempt + 1} of {tries})")
     return by_name, dev_ms, wall
 
 
@@ -2045,7 +2065,7 @@ def phase_cli(torch, dev, raw_rows):
     pre_files += ["index.html", "images/gen.png"] + [
         f"images/gen_{it:08d}.png" for it in (10, 20, 30, 40)]
     for name, run_dir, augment, extra, bare in (
-            ("pretrain step", run_a, None, [],
+            ("pretrain step", run_a, "step", [],
              ("pretrain_update_raw", "float32")),
             ("pretrain jax", tmp / "b", "jax", [],
              ("pretrain_update", "float32")),
@@ -2057,7 +2077,7 @@ def phase_cli(torch, dev, raw_rows):
             "--max-iterations", str(CLI_DEPTH_ITERS)] + extra,
             augment=augment)
         fused = "fused into the training step" in rec["stdout"]
-        if fused != (augment is None):
+        if fused != (augment == "step"):
             raise AssertionError(f"cli {name}: in-step augment {fused}")
         check_files(run_dir, pre_files, f"cli {name}")
         check_pretrain_launches(name, rec)
@@ -2068,7 +2088,8 @@ def phase_cli(torch, dev, raw_rows):
     # 4. estimate3 from the step pretrain's snapshots and the VAE
     rec = run_cli(torch, depth_train, common("estimate3", run_a / "pre") + [
         "--mode", "estimate3", "--frac", "0.5", "--batch-size",
-        str(CLI_BATCH), "--max-iterations", str(CLI_DEPTH_ITERS)])
+        str(CLI_BATCH), "--max-iterations", str(CLI_DEPTH_ITERS)],
+        augment="step")
     out = rec["stdout"]
     if "Loading pretrained VAE parameters" not in out or \
             f"Resume from iteration {CLI_DEPTH_ITERS}" not in out:
@@ -2109,6 +2130,368 @@ def phase_cli(torch, dev, raw_rows):
     report("pose_train exps/synth.yaml convergence", rec,
            None, "no timing phase at synth.yaml widths", errs)
     return rows, tmp, cfg, run_a / "pre"
+
+
+# ---------------------------------------------------------------------------
+# the real-data path: PNG mini-datasets, the importers and their cache, the
+# four datasets, and the host / native / step augments through the CLIs
+# ---------------------------------------------------------------------------
+
+REAL_FRAMES = {"nyu_train": 64, "nyu_test": 32, "icvl_train": 64,
+               "icvl_test": 8}
+REAL_CUTS = {
+    "sample_poses": 4096,                 # 250000 (pose_train's draws)
+    "display": 1,                         # 10
+    "image_display_iterations": 3,        # 100
+    "image_save_iterations": 3,           # 2500: estimate3 evals test_b
+                                          # at 3 and 6, pose_train at 30
+    "snapshot_save_iterations": 10 ** 6,  # 25000: no snapshot (~46 s each)
+}
+REAL_PRETRAIN_ITERS = 6
+REAL_ICVL_ITERS = 2
+REAL_EST_ITERS = 6
+REAL_POSE_ITERS = 30
+REAL_LOADER_BATCHES = 6
+REAL_LABEL_TOL = 1e-4     # tests/test_fast_augment.py: labels, host vs native
+REAL_FLIP_SHARE = 1e-3    # its bound on the pixels two backends may pick
+                          # differently (nearest-neighbour tie flips)
+
+
+def png_bytes(arr):
+    """A PNG of an (H, W) uint16 or (H, W, 3) uint8 array, written with
+    zlib and struct, the five filter types cycling row by row."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    color = 0 if arr.ndim == 2 else 2
+    x = (arr.astype(">u2").view(np.uint8) if depth == 16
+         else arr.astype(np.uint8)).reshape(h, -1).astype(np.int16)
+    bpp = (1 if arr.ndim == 2 else arr.shape[2]) * depth // 8
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    rows = np.empty((h, x.shape[1] + 1), np.uint8)
+    for kind in range(5):       # rows kind, kind + 5, ...: filter `kind`
+        xs, b = x[kind::5], up[kind::5]
+        a, c = np.zeros_like(xs), np.zeros_like(b)
+        a[:, bpp:], c[:, bpp:] = xs[:, :-bpp], b[:, :-bpp]
+        if kind == 4:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        else:
+            pred = (0, a, b, (a + b) >> 1)[kind]
+        rows[kind::5, 0] = kind
+        rows[kind::5, 1:] = (xs - pred) & 0xFF
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_real_datasets(base, seed=0):
+    """An NYU and an ICVL mini-dataset in the real layouts and camera
+    shapes, the hands rendered by the port's ``render_hand_depth``: NYU
+    ``train/`` (depth_1_* and synthdepth_1_*) and ``test/`` 640 x 480 RGB
+    frames packing ``(G << 8) | B``, each with ``joint_data.mat``; ICVL
+    ``Depth/sequence0/`` 320 x 240 16-bit frames with ``train.txt``,
+    ``test_seq_1.txt`` and ``test_seq_2.txt``.  Returns the two roots."""
+    import scipy.io
+
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.synthetic import render_hand_depth
+
+    rs = np.random.RandomState(seed)
+    nyu, icvl = base / "nyu", base / "icvl"
+    cam = Camera.nyu()
+
+    def nyu_png(path, dpt):
+        d = dpt.astype(np.int32)
+        path.write_bytes(png_bytes(np.stack(
+            [np.zeros_like(d, np.uint8), (d >> 8).astype(np.uint8),
+             (d & 0xFF).astype(np.uint8)], -1)))
+
+    for sub, n in (("train", REAL_FRAMES["nyu_train"]),
+                   ("test", REAL_FRAMES["nyu_test"])):
+        (nyu / sub).mkdir(parents=True)
+        uvd, xyz = np.zeros((n, 36, 3)), np.zeros((n, 36, 3))
+        for i in range(n):
+            com3d = np.array([rs.uniform(-80, 80), rs.uniform(-60, 60),
+                              rs.uniform(650, 900)], np.float32)
+            dpt, joints3d = render_hand_depth(cam, com3d, 36, rs)
+            uvd[i] = cam.to_img(joints3d)
+            xyz[i] = cam.img_to_3d(uvd[i])
+            nyu_png(nyu / sub / f"depth_1_{i + 1:07d}.png", dpt)
+            if sub == "train":  # the synthetic domain: the same frames
+                nyu_png(nyu / sub / f"synthdepth_1_{i + 1:07d}.png", dpt)
+        scipy.io.savemat(nyu / sub / "joint_data.mat",
+                         {"joint_xyz": [xyz], "joint_uvd": [uvd]})
+    cam = Camera.icvl()
+    (icvl / "Depth" / "sequence0").mkdir(parents=True)
+    for name, n in (("train", REAL_FRAMES["icvl_train"]),
+                    ("test_seq_1", REAL_FRAMES["icvl_test"]),
+                    ("test_seq_2", REAL_FRAMES["icvl_test"])):
+        lines = []
+        for i in range(n):
+            com3d = np.array([rs.uniform(-60, 60), rs.uniform(-40, 40),
+                              rs.uniform(350, 500)], np.float32)
+            dpt, joints3d = render_hand_depth(cam, com3d, 16, rs)
+            fname = f"sequence0/{name}_{i}.png"
+            (icvl / "Depth" / fname).write_bytes(
+                png_bytes(dpt.astype(np.uint16)))
+            lines.append(fname + " " + " ".join(
+                f"{v:.3f}" for v in cam.to_img(joints3d).reshape(-1)))
+        (icvl / f"{name}.txt").write_text("\n".join(lines) + "\n")
+    return nyu, icvl
+
+
+def real_config(root, tmp, name, nyu, icvl, cache):
+    """``exps/<name>.yaml`` with its roots at the mini-datasets, its caches
+    in ``cache`` and the cuts of ``REAL_CUTS``; widths and batch sizes as
+    the file has them."""
+    import yaml
+
+    doc = yaml.safe_load((root / "exps" / f"{name}.yaml").read_text())
+    train = doc["train"]
+    for k, v in REAL_CUTS.items():
+        if k != "sample_poses":
+            train[k] = v
+    for spec in train["datasets"].values():
+        spec["root"] = str(icvl if "ICVL" in spec["class_name"] else nyu)
+        spec["cacheDir"] = str(cache)
+        if spec.get("sample_poses"):
+            spec["sample_poses"] = REAL_CUTS["sample_poses"]
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    return str(path)
+
+
+def same_sequence(a, b):
+    return (len(a) == len(b) and np.array_equal(a.dpt_mm(), b.dpt_mm())
+            and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in
+                    ("gtorig", "gtcrop", "M", "gt3Dorig", "gt3Dcrop",
+                     "com"))
+            and a.file_names == b.file_names)
+
+
+def phase_realdata(torch, dev, raw_rows):
+    """The real-data path at ``exps/nnyu.yaml`` width: mini-datasets
+    written as PNGs, each split imported fresh and again from its cache
+    (held equal; decode and import frames/s), each augment backend's
+    loader ms per batch, ``depth_train --mode pretrain`` under ``host``,
+    ``native`` and ``step``, ``--mode estimate3`` under ``host`` with its
+    test_b evaluation, ``pose_train`` on the NYU split and
+    ``exps/nicvl.yaml`` pretrain under ``host`` (the norm kernels' launch
+    counts per iteration asserted), and ``host`` held against ``native``
+    over one epoch.  Returns (rows, the runs' launches by path)."""
+    import shutil
+
+    from lsps_tpu_torch import native
+    from lsps_tpu_torch.cli import depth_train, pose_train
+    from lsps_tpu_torch.config import NetConfig
+    from lsps_tpu_torch.data.fast_augment import FastAugmenter
+    from lsps_tpu_torch.data.importers import ICVLImporter, NYUImporter
+    from lsps_tpu_torch.data.loader import get_data_loader, get_dataset
+    from lsps_tpu_torch.data.png import read_png
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    tmp = root / "build" / "smoke_realdata"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cache = tmp / "cache"
+    t0 = time.perf_counter()
+    nyu, icvl = write_real_datasets(tmp)
+    rows = {"write_s": time.perf_counter() - t0}
+    native_s = time.perf_counter()
+    native.get_lib()    # no fallback: a failed build fails the run
+    rows["native_build_s"] = time.perf_counter() - native_s
+    rows["native_flags"] = " ".join(native.BUILT_FLAGS.get(
+        native.library_path(), ("(built before)",)))
+
+    # decode, then import each split fresh and from its cache
+    frames = sorted((nyu / "test").glob("depth_1_*.png")) + sorted(
+        (icvl / "Depth" / "sequence0").glob("test_seq_*.png"))
+    t0 = time.perf_counter()
+    for f in frames:
+        read_png(f)
+    rows["decode_frames_per_s"] = len(frames) / (time.perf_counter() - t0)
+    splits = {
+        "NYU train": lambda: NYUImporter(
+            str(nyu), cache_dir=str(cache), all_joints=True).load_sequence(
+                "train"),
+        "NYU train_synth": lambda: NYUImporter(
+            str(nyu), cache_dir=str(cache), all_joints=True).load_sequence(
+                "train_synth"),
+        "NYU test": lambda: NYUImporter(
+            str(nyu), cache_dir=str(cache), all_joints=True).load_sequence(
+                "test"),
+        "ICVL train": lambda: ICVLImporter(
+            str(icvl), cache_dir=str(cache)).load_sequence("train",
+                                                           sub_seq=["0"]),
+        "ICVL test_seq_1": lambda: ICVLImporter(
+            str(icvl), cache_dir=str(cache)).load_sequence("test_seq_1"),
+        "ICVL test_seq_2": lambda: ICVLImporter(
+            str(icvl), cache_dir=str(cache)).load_sequence("test_seq_2"),
+    }
+    imports = {}
+    for name, load in splits.items():
+        t0 = time.perf_counter()
+        fresh = load()
+        t1 = time.perf_counter()
+        again = load()
+        t2 = time.perf_counter()
+        if not same_sequence(fresh, again) or not len(fresh):
+            raise AssertionError(f"realdata {name}: the cached import "
+                                 "differs from the fresh one")
+        imports[name] = {"frames": len(fresh),
+                         "import_frames_per_s": len(fresh) / (t1 - t0),
+                         "cached_frames_per_s": len(fresh) / (t2 - t1)}
+    rows["imports"] = imports
+
+    cfg = real_config(root, tmp, "nnyu", nyu, icvl, cache)
+    hyp = NetConfig(cfg).hyperparameters
+    batch = hyp["batch_size"]
+    joint, one_way = in_act_counts(hyp["gen"])
+    pre_fwd, pre_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
+    train_b = NetConfig(cfg).datasets["train_b"]
+
+    # each backend's loader alone: ms per batch of the producer
+    loaders = {}
+    for backend in ("host", "native", "step"):
+        with unittest.mock.patch.dict(os.environ, {"LSPS_AUGMENT": backend}):
+            ds = get_dataset(train_b)
+            lp = get_data_loader(ds, batch, shuffle=True, seed=1,
+                                 device=dev)
+            got = 0
+            t0 = time.perf_counter()
+            while got < REAL_LOADER_BATCHES:
+                for _ in lp:
+                    got += 1
+                    if got == REAL_LOADER_BATCHES:
+                        break
+            loaders[backend] = (time.perf_counter() - t0) * 1e3 / got
+    rows["loader_ms_per_batch"] = loaders
+
+    # host against native over one epoch, from the same draws
+    ds_h, ds_n = get_dataset(train_b), get_dataset(train_b)
+    idx = list(range(len(ds_h)))
+    host = [ds_h[i] for i in idx]
+    imgs_n, labels_n = FastAugmenter(ds_n, "native").batch(idx)[:2]
+    d = np.stack([h[0] for h in host]) - imgs_n
+    flips = d != 0
+    label_gap = float(np.abs(np.stack([h[1] for h in host])
+                             - labels_n).max())
+    rows["host_vs_native"] = {
+        "samples": len(idx), "pixels_differing": float(flips.mean()),
+        "median_flip": float(np.median(np.abs(d[flips])))
+        if flips.any() else None, "label_max_abs": label_gap}
+    if flips.mean() >= REAL_FLIP_SHARE or label_gap > REAL_LABEL_TOL:
+        raise AssertionError(f"realdata host vs native: "
+                             f"{rows['host_vs_native']}")
+
+    # the CLIs
+    runs, launches_by_path = [], {}
+
+    def argv(config, name, *extra):
+        return ["--config", config, "--device", device_flag(dev),
+                "--log", str(tmp / "logs" / name), "--snapshot-prefix",
+                str(tmp / name / "pre"), *extra]
+
+    def record(name, rec, bare_ms=None, errors=()):
+        n = rec["iterations"]
+        row = {"run": name, "iterations": n,
+               "datasets_s": rec["datasets_s"], "wall_s": rec["wall_s"],
+               "median_ms_per_iter": rec["median_ms_per_iter"],
+               "bare_step_ms": bare_ms,
+               "launches_per_iter": {k: v / n for k, v in
+                                     rec["launches"].items()},
+               "eval_mm": list(errors)}
+        runs.append(row)
+        launches_by_path[f"realdata {name} ({n} iterations)"] = \
+            rec["launches"]
+        log(f"realdata {name}: datasets {rec['datasets_s']:.2f} s, {n} "
+            f"iterations, median {row['median_ms_per_iter']} ms/iteration "
+            f"(bare step {bare_ms}), wall {rec['wall_s']:.1f} s, launches "
+            f"per iteration {json.dumps(row['launches_per_iter'])}, eval mm "
+            f"{row['eval_mm']}")
+
+    def check_pretrain(name, rec):
+        n, got = rec["iterations"], rec["launches"]
+        if n == 0 or got["in_act_forward"] != pre_fwd * n or \
+                got["in_act_backward"] != pre_bwd * n:
+            raise AssertionError(f"realdata {name}: launches {got} over {n} "
+                                 f"iterations, want {pre_fwd} / {pre_bwd} "
+                                 "per iteration")
+
+    rec = run_cli(torch, pose_train, argv(cfg, "pose", "--max-iterations",
+                                          str(REAL_POSE_ITERS)))
+    errs = stdout_errors(rec["stdout"], r"Mean error: ([0-9.eE+-]+)mm")
+    if not errs or not all(math.isfinite(e) for e in errs):
+        raise AssertionError(f"realdata pose_train: eval errors {errs}")
+    record("pose_train nnyu", rec, errors=errs)
+
+    for backend, update in (("host", "pretrain_update"),
+                            ("native", "pretrain_update"),
+                            ("step", "pretrain_update_raw")):
+        name = f"pretrain nnyu {backend}"
+        rec = run_cli(torch, depth_train, argv(
+            cfg, name.replace(" ", "_"), "--mode", "pretrain",
+            "--batch-size", str(batch), "--max-iterations",
+            str(REAL_PRETRAIN_ITERS)), augment=backend)
+        fused = "fused into the training step" in rec["stdout"]
+        if fused != (backend == "step"):
+            raise AssertionError(f"realdata {name}: in-step augment {fused}")
+        check_pretrain(name, rec)
+        record(name, rec, bare_step(raw_rows, update, "float32", batch))
+
+    rec = run_cli(torch, depth_train, argv(
+        cfg, "estimate3", "--mode", "estimate3", "--idx", "0",
+        "--batch-size", str(batch), "--max-iterations",
+        str(REAL_EST_ITERS)), augment="host")
+    errs = stdout_errors(rec["stdout"], r"Mean err: ([0-9.eE+-]+) ")
+    n = rec["iterations"]
+    if len(errs) != REAL_EST_ITERS // REAL_CUTS["image_save_iterations"] \
+            or not all(math.isfinite(e) for e in errs):
+        raise AssertionError(f"realdata estimate3: Mean err {errs}")
+    if rec["launches"]["in_act_forward"] != joint * n or \
+            rec["launches"]["in_act_backward"] != 0:
+        raise AssertionError(f"realdata estimate3: launches "
+                             f"{rec['launches']} over {n} iterations, want "
+                             f"{joint} forward and no backward per "
+                             "iteration")
+    record("estimate3 nnyu host", rec, errors=errs)
+
+    icvl_cfg = real_config(root, tmp, "nicvl", nyu, icvl, cache)
+    rec = run_cli(torch, depth_train, argv(
+        icvl_cfg, "pretrain_nicvl", "--mode", "pretrain", "--batch-size",
+        str(batch), "--max-iterations", str(REAL_ICVL_ITERS)),
+        augment="host")
+    check_pretrain("pretrain nicvl host", rec)
+    record("pretrain nicvl host", rec)
+    rows["runs"] = runs
+    shutil.rmtree(tmp)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    cuts = dict(REAL_CUTS, iterations={
+        "pose_train": f"{REAL_POSE_ITERS} (500000)",
+        "pretrain": f"{REAL_PRETRAIN_ITERS} (500000)",
+        "estimate3": f"{REAL_EST_ITERS} (500000)",
+        "nicvl pretrain": f"{REAL_ICVL_ITERS} (500000)"},
+        frames=REAL_FRAMES)
+    log(f"realdata phase {rows['phase_s']:.1f} s at exps/nnyu.yaml and "
+        f"exps/nicvl.yaml widths, batch {batch} (pose {hyp['batch_size_pose']}"
+        f"), cuts {json.dumps(cuts)}; decode "
+        f"{rows['decode_frames_per_s']:.1f} frames/s; loader ms per batch "
+        f"{json.dumps({k: round(v, 2) for k, v in loaders.items()})}; host "
+        f"vs native {json.dumps(rows['host_vs_native'])}")
+    return rows, launches_by_path
 
 
 # ---------------------------------------------------------------------------
@@ -2764,6 +3147,7 @@ def main() -> int:
     del trainer
     raw_rows = phase_raw_timing(torch, dev, hyp, train_sd)
     cli_rows, cli_tmp, cli_cfg, cli_prefix = phase_cli(torch, dev, raw_rows)
+    real_rows, real_launches = phase_realdata(torch, dev, raw_rows)
     est, daemon_row = phase_daemon(torch, dev, cli_cfg, cli_prefix,
                                    cli_tmp)
     export_launches, export_rows = phase_export(
@@ -2780,6 +3164,7 @@ def main() -> int:
         path_launches[f"cli {r['run']} ({r['iterations']} iterations)"] = \
             r["launches"]
     path_launches[f"cli latent_walk --steps {WALK_STEPS}"] = walk_launches
+    path_launches.update(real_launches)
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
@@ -2789,6 +3174,8 @@ def main() -> int:
     log("augment timing " + json.dumps(aug_rows))
     log("raw, bf16 and scan timing " + json.dumps(raw_rows))
     log("cli phase " + json.dumps(cli_rows))
+    log("realdata phase " + json.dumps(
+        {**real_rows, "card": gpu_name_and_power()}))
     log("serving surface " + json.dumps(
         {"com_sweep_worst_z_ulps": com_gap, "daemon": daemon_row,
          "export": export_rows, "latent_walk": walk_row,

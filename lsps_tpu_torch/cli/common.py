@@ -18,9 +18,13 @@ Differences from the JAX package's CLIs:
   CLIs seed their keys.  A scan chunk of K steps draws what K single
   steps draw.
 * ``--mesh-data`` other than 0 raises: data parallelism is the DDP item
-  of ``ROADMAP.md`` (queue 1 #12).
-* With ``LSPS_AUGMENT`` unset the loaders take the ``step`` augment
-  (``data/loader.py``), not ``host``: the card's machine has no cv2.
+  of ``ROADMAP.md`` (queue 1 #5).
+
+``LSPS_AUGMENT`` selects the training augment as in the JAX package, with
+``host`` when it is unset (``data/loader.py``).  The datasets of the
+configs (``dataset_hand_NYU``, ``dataset_hand_ICVL``, their ``_test``
+classes and the synthetic ones) are registered when the first dataset is
+made.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from lsps_tpu_torch.utils.skeleton import tables_for
 import lsps_tpu_torch.train.trainer  # noqa: F401
 
 MESH_ITEM = ("data-parallel training is not ported yet (ROADMAP.md, queue "
-             "1 #12: torch.distributed DDP); use --mesh-data 0")
+             "1 #5: torch.distributed DDP); use --mesh-data 0")
 
 
 def _positive_int(value: str) -> int:
@@ -59,12 +63,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     of ``--device``."""
     p = argparse.ArgumentParser(
         description=description,
-        epilog="LSPS_AUGMENT selects the training augment: step (the "
-               "default here: warp parameters from the loader, the image "
-               "work inside the training step) or jax (images made in the "
-               "loader, on the trainer's device).  The JAX package's "
-               "default, host, needs cv2 and is not ported; host and "
-               "native raise.")
+        epilog="LSPS_AUGMENT selects the training augment: host (the "
+               "default: per-sample numpy warps in the loader), native "
+               "(the C++ host library, one call per batch; also "
+               "LSPS_NATIVE=1), jax (images made in the loader, on the "
+               "trainer's device) or step (warp parameters from the "
+               "loader, the image work inside the training step).")
     p.add_argument("--device", "--gpu", type=str, default="0",
                    help="CUDA device index, or 'cpu'")
     p.add_argument("--resume", type=int, default=0)

@@ -11,9 +11,11 @@ The loop of ``lsps_tpu/cli/depth_train.py`` (reference: src/depth_train.py:
   through ``post_update``, with a periodic test-set eval (mean mm error,
   % frames within 40 mm, ``gen.avi``, ``_test.png``).
 
-With ``LSPS_AUGMENT`` unset or ``step`` the loaders yield warp parameters
-and the image work runs inside the step (``*_raw``); with ``jax`` they
-yield images made on the trainer's device.  ``--steps-per-call`` K runs K
+With ``LSPS_AUGMENT`` unset or ``host`` the loaders yield images made
+per sample on the host, with ``native`` images made per batch by the C++
+host library, with ``jax`` images made on the trainer's device; with
+``step`` they yield warp parameters and the image work runs inside the step
+(``*_raw``).  ``--steps-per-call`` K runs K
 steps per ``pretrain_scan`` / ``post_scan`` call (auto: 1).  The draws
 come from the trainer's generator, seeded with the attempt's seed + 13
 (``cli/common.py``).  Images are PNG where the JAX package writes JPEG;

@@ -31,8 +31,11 @@ column: the serving kernel's separable ``frame[iy[r], ix[c]]`` gather
 does not fit it.  This module is plain PyTorch on whatever device its
 inputs are on; it replaces an XLA function, not a Pallas kernel.
 
-Beside it are the host ``normalize`` / ``denormalize`` of a crop and the
-default augment modes, as ``lsps_tpu/data/augment.py`` has them.
+Beside it is the host half of ``lsps_tpu/data/augment.py``: ``normalize``
+/ ``denormalize`` of a crop, the default augment modes and ``augment_crop``,
+the per-sample augment of the ``host`` backend (numpy, the warps of
+``data/detector.py``), bit-equal to the JAX package's on the same
+``RandomState``.
 """
 
 from __future__ import annotations
@@ -65,6 +68,89 @@ def normalize(img: np.ndarray, com, cube) -> np.ndarray:
 def denormalize(img: np.ndarray, com, cube) -> np.ndarray:
     """Inverse of :func:`normalize` (up to the background collapse)."""
     return img * (cube[2] / 2.0) + com[2]
+
+
+def augment_crop(img, gt3d_crop, com_img, cube, M, aug_modes, hd,
+                 norm_zero_one=False, sigma_com=None, sigma_sc=None,
+                 rot_range=None, rng=None):
+    """Randomly augment one normalized crop (dataset_hand2.py:34-119).
+
+    ``img`` is the normalized crop, ``com_img`` the CoM in image coords
+    (u, v, z), ``hd`` the dataset's ``HandDetector``.  The draws keep the
+    reference order (mode, offset, rotation, scale), all four whatever the
+    mode, so a shared RandomState gives the same stream.
+
+    Returns (img, None, label, cube, com_img, M, rot); the label is
+    gt3Dcrop / (cube_z / 2) after the augment.
+    """
+    assert img.ndim == 2
+    assert isinstance(aug_modes, list)
+    sigma_com = 10.0 if sigma_com is None else sigma_com
+    sigma_sc = 0.05 if sigma_sc is None else sigma_sc
+    rot_range = 180.0 if rot_range is None else rot_range
+
+    img = np.array(img, np.float32, copy=True)
+    com_img = np.asarray(com_img, np.float32)
+    cube = np.asarray(cube, np.float32)
+
+    # denormalize to mm (dataset_hand2.py:64-67)
+    if norm_zero_one:
+        img = img * cube[2] + (com_img[2] - cube[2] / 2.0)
+    else:
+        img = img * (cube[2] / 2.0) + com_img[2]
+    premax = img.max()
+
+    # the reference draw order (dataset_hand2.py:70-73)
+    mode = rng.randint(0, len(aug_modes))
+    off = rng.randn(3) * sigma_com
+    rot = rng.uniform(-rot_range, rot_range)
+    sc = abs(1.0 + rng.randn() * sigma_sc)
+
+    mode_name = aug_modes[mode]
+    # the branches other than rot return rot = 0.0, as the reference
+    # zeroes the unused draws (dataset_hand2.py:75-99)
+    if mode_name == "com":
+        rot = 0.0
+        img_d, new_joints, com_img, M = hd.move_com(
+            img.astype("float32"), cube, com_img, off, gt3d_crop, M,
+            pad_value=0)
+        label = new_joints / (cube[2] / 2.0)
+    elif mode_name == "rot":
+        img_d, new_joints, rot = hd.rotate_hand(
+            img.astype("float32"), cube, com_img, rot, gt3d_crop,
+            pad_value=0)
+        label = new_joints / (cube[2] / 2.0)
+    elif mode_name == "sc":
+        rot = 0.0
+        img_d, new_joints, cube, M = hd.scale_hand(
+            img.astype("float32"), cube, com_img, sc, gt3d_crop, M,
+            pad_value=0)
+        label = new_joints / (cube[2] / 2.0)
+    elif mode_name == "none":
+        rot = 0.0
+        img_d = img
+        label = gt3d_crop / (cube[2] / 2.0)
+    else:
+        raise NotImplementedError(mode_name)
+
+    img_d = np.asarray(img_d, np.float32)
+    # re-clamp and renormalize with the premax sentinel
+    # (dataset_hand2.py:103-116)
+    far = com_img[2] + cube[2] / 2.0
+    near = com_img[2] - cube[2] / 2.0
+    img_d[img_d == premax] = far
+    img_d[img_d == 0] = far
+    img_d[img_d >= far] = far
+    img_d[img_d <= near] = near
+    if norm_zero_one:
+        img_d -= near
+        img_d /= cube[2]
+    else:
+        img_d -= com_img[2]
+        img_d /= cube[2] / 2.0
+
+    return (img_d, None, label, np.asarray(cube), com_img,
+            np.array(M, dtype="float32"), rot)
 
 
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:

@@ -1,33 +1,51 @@
-"""CoM-based 3D hand cropping and pose sampling, in numpy (no cv2).
+"""CoM-based 3D hand cropping, augment warps and pose sampling, in numpy
+(no cv2).
 
-The port's copy of the part of ``lsps_tpu/data/detector.py``'s
-``HandDetector`` that the dataset crops and the pose sampling use: CoM,
-bounds, crop, resize, ``crop_area_3d``, ``apply_crop_3d`` and the
-vectorized ``sample_random_poses``.  Every result is bit-equal to the JAX
-package's on the same inputs.
+The port's copy of ``lsps_tpu/data/detector.py``'s ``HandDetector``: CoM,
+bounds, crop, resize, ``crop_area_3d``, ``apply_crop_3d``, the augment
+warps of the per-sample host augment (``recrop_hand``, ``move_com``,
+``rotate_hand``, ``scale_hand``) and the vectorized
+``sample_random_poses``.  Every result is bit-equal to the JAX package's
+on the same inputs.
 
-The one cv2 call on that path, ``cv2.resize(..., INTER_NEAREST)``, is a
-numpy index gather here that picks the pixels cv2 picks: OpenCV's
-``resizeNN`` scales by ``inv = dst_size / src_size`` (a double) and reads
-source index ``min(floor(dst_index * (1 / inv)), src_size - 1)``.  The
-ratio ``src_size / dst_size`` rounds differently for some sizes and moves
-whole rows and columns.
+The cv2 calls of that path are numpy here and pick the pixels cv2 picks:
 
-Not ported here (``ROADMAP.md``): the cv2 warps of the per-sample host
-augment (``recrop_hand``, ``move_com``, ``rotate_hand``, ``scale_hand``),
-the contour detector and tracker (``detect``, ``track``), the
-bilinear resizes (``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``) and the CoM
-refinement hook (``refine_net``), which no dataset of the JAX package
-selects.
+* ``cv2.resize(..., INTER_NEAREST)`` is an index gather: OpenCV's
+  ``resizeNN`` scales by ``inv = dst_size / src_size`` (a double) and reads
+  source index ``min(floor(dst_index * (1 / inv)), src_size - 1)``.  The
+  ratio ``src_size / dst_size`` rounds differently for some sizes and
+  moves whole rows and columns.
+* ``cv2.warpAffine`` and ``cv2.warpPerspective`` with ``INTER_NEAREST``
+  and ``BORDER_CONSTANT`` (OpenCV 5) invert the matrix in double (the
+  affine inverse of ``invertAffineTransform``, the 3 x 3 cofactor inverse
+  of ``cv::invert``), cast it to float32, and per destination pixel
+  compute ``X = fma(m0, x, m1 * y + m2)`` in float32 (the row term
+  rounded per operation, the x term fused; numpy emulates the fused
+  multiply-add with the exact float64 product rounded once), for the
+  perspective warp ``X / W`` as a float32 division, and round half to
+  even.  A source pixel outside the frame takes the border value.  This
+  holds bit for bit at widths that are a multiple of cv2's vector block,
+  which every 128 x 128 augment crop is; at other widths cv2's remainder
+  columns may round another way (1 to 4 pixels over 1200 random warps at
+  widths 127, 131 and 45).
+* ``cv2.getRotationMatrix2D`` scales the angle by ``CV_PI / 180`` in
+  double, as :func:`rotation_matrix_2d` does.
+
+Not ported here (``ROADMAP.md``): the contour detector and tracker
+(``detect``, ``track``, ``refine_com_iterative``), the bilinear resizes
+(``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``) and the CoM refinement hook
+(``refine_net``), which no dataset of the JAX package selects.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
 
-from lsps_tpu_torch.data.transformations import rotate_points_3d
+from lsps_tpu_torch.data.transformations import (rotate_points_2d,
+                                                 rotate_points_3d)
 
 
 def nearest_indices(src_size: int, dst_size: int) -> np.ndarray:
@@ -50,6 +68,93 @@ def resize_nearest(src, dsize) -> np.ndarray:
     return src[iy[:, None], ix[None, :]]
 
 
+def rotation_matrix_2d(center, angle, scale) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the (2, 3) float64 matrix that rotates
+    by ``angle`` degrees (counter-clockwise) about ``center``, a float32
+    point as OpenCV takes it."""
+    a = float(angle) * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = float(np.float32(center[0])), float(np.float32(center[1]))
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def invert_affine(M) -> np.ndarray:
+    """``cv2.invertAffineTransform`` of a (2, 3) matrix, in double."""
+    m = [float(v) for v in np.asarray(M, np.float64).reshape(6)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[4] * d, m[0] * d, -m[1] * d, -m[3] * d
+    b1 = -a11 * m[2] - a12 * m[5]
+    b2 = -a21 * m[2] - a22 * m[5]
+    return np.array([[a11, a12, b1], [a21, a22, b2]])
+
+
+def invert_3x3(M) -> np.ndarray:
+    """``cv::invert`` of a 3 x 3 double matrix (its cofactor formulas);
+    raises for a singular matrix, as ``warpPerspective`` would warp
+    through the zero matrix OpenCV returns for it."""
+    m = [[float(v) for v in row] for row in np.asarray(M, np.float64)]
+    d = (m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[2][1])
+         - m[0][1] * (m[1][0] * m[2][2] - m[1][2] * m[2][0])
+         + m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0]))
+    if d == 0:
+        raise ValueError("singular perspective matrix")
+    d = 1.0 / d
+    return np.array([
+        [(m[1][1] * m[2][2] - m[1][2] * m[2][1]) * d,
+         (m[0][2] * m[2][1] - m[0][1] * m[2][2]) * d,
+         (m[0][1] * m[1][2] - m[0][2] * m[1][1]) * d],
+        [(m[1][2] * m[2][0] - m[1][0] * m[2][2]) * d,
+         (m[0][0] * m[2][2] - m[0][2] * m[2][0]) * d,
+         (m[0][2] * m[1][0] - m[0][0] * m[1][2]) * d],
+        [(m[1][0] * m[2][1] - m[1][1] * m[2][0]) * d,
+         (m[0][1] * m[2][0] - m[0][0] * m[2][1]) * d,
+         (m[0][0] * m[1][1] - m[0][1] * m[1][0]) * d]])
+
+
+def _row_coords(inv, dsize):
+    """Each row of the float32 inverse ``inv`` applied to every
+    destination pixel: ``fma(m0, x, m1 * y + m2)`` in float32."""
+    w, h = int(dsize[0]), int(dsize[1])
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    coords = []
+    for m0, m1, m2 in inv:
+        row = m1 * ys + m2                          # float32, rounded twice
+        coords.append((np.float64(m0) * xs + row).astype(np.float32))
+    return coords
+
+
+def _gather_nearest(src, sx, sy, border):
+    src = np.asarray(src)
+    sh, sw = src.shape[:2]
+    with np.errstate(invalid="ignore"):
+        ix, iy = np.rint(sx), np.rint(sy)           # half to even
+        ok = (ix >= 0) & (ix < sw) & (iy >= 0) & (iy < sh)
+    out = np.full(sx.shape, border, src.dtype)
+    out[ok] = src[iy[ok].astype(np.int64), ix[ok].astype(np.int64)]
+    return out
+
+
+def warp_affine_nearest(src, M, dsize, border=0.0) -> np.ndarray:
+    """``cv2.warpAffine(src, M, dsize, flags=INTER_NEAREST,
+    borderMode=BORDER_CONSTANT, borderValue=border)``; ``M`` maps source
+    to destination, ``dsize`` is (width, height)."""
+    inv = invert_affine(M).astype(np.float32)
+    sx, sy = _row_coords(inv, dsize)
+    return _gather_nearest(src, sx, sy, border)
+
+
+def warp_perspective_nearest(src, M, dsize, border=0.0) -> np.ndarray:
+    """``cv2.warpPerspective(src, M, dsize, flags=INTER_NEAREST,
+    borderMode=BORDER_CONSTANT, borderValue=border)``; ``M`` maps source
+    to destination, ``dsize`` is (width, height)."""
+    inv = invert_3x3(M).astype(np.float32)
+    x, y, w = _row_coords(inv, dsize)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return _gather_nearest(src, x / w, y / w, border)
+
+
 class HandDetector:
     """Crop a hand around its center of mass."""
 
@@ -64,6 +169,18 @@ class HandDetector:
         self.fx = fx
         self.fy = fy
         self.importer = importer      # provides joint projection
+
+    @staticmethod
+    def detection_mode_to_string(com, refine_net) -> str:
+        """Cache-key string for the detection mode
+        (handdetector.py:73-91)."""
+        if com is False and refine_net is False:
+            return "gt"
+        if com is True and refine_net is False:
+            return "com"
+        if com is True and refine_net is True:
+            return "comref"
+        raise NotImplementedError(f"com {com}, refineNet {refine_net}")
 
     # ------------------------------------------------------------------
     def calculate_com(self, dpt) -> np.ndarray:
@@ -250,6 +367,76 @@ class HandDetector:
         ys = int(np.floor(dsize[1] / 2.0 - rz.shape[0] / 2.0))
         ret[ys:ys + rz.shape[0], xs:xs + rz.shape[1]] = rz
         return ret
+
+    # ------------------------------------------------------------------
+    # augment warps (handdetector.py:682-807)
+    # ------------------------------------------------------------------
+    def recrop_hand(self, crop, M, Mnew, target_size, background_value=0.0,
+                    nv_val=0.0, thresh_z=True, com=None,
+                    size=(250, 250, 250)) -> np.ndarray:
+        """Re-crop by warping through M @ Mnew (handdetector.py:786-807)."""
+        warped = warp_perspective_nearest(crop, np.dot(M, Mnew), target_size,
+                                          border=float(background_value))
+        warped[np.isclose(warped, nv_val)] = background_value
+        if thresh_z:
+            assert com is not None
+            _, _, _, _, zstart, zend = self.com_to_bounds(com, size)
+            msk1 = np.logical_and(warped < zstart, warped != 0)
+            msk2 = np.logical_and(warped > zend, warped != 0)
+            warped[msk1] = zstart
+            warped[msk2] = 0.0
+        return warped
+
+    def move_com(self, dpt, cube, com, off, joints_3d, M, pad_value=0):
+        """Simulate a CoM shift on an already-cropped image
+        (handdetector.py:682-714)."""
+        if np.allclose(off, 0.0):
+            return dpt, joints_3d, com, M
+        new_com = self.importer.joint_3d_to_img(
+            self.importer.joint_img_to_3d(np.asarray(com)) + off)
+        if not (np.allclose(com[2], 0.0) or np.allclose(new_com[2], 0.0)):
+            Mnew = self.com_to_transform(new_com, cube, dpt.shape)
+            new_dpt = self.recrop_hand(dpt, Mnew, np.linalg.inv(M),
+                                       dpt.shape, background_value=pad_value,
+                                       nv_val=32000.0, thresh_z=True,
+                                       com=new_com, size=cube)
+        else:
+            Mnew, new_dpt = M, dpt
+        new_joints = (joints_3d + self.importer.joint_img_to_3d(np.asarray(com))
+                      - self.importer.joint_img_to_3d(new_com))
+        return new_dpt, new_joints, new_com, Mnew
+
+    def rotate_hand(self, dpt, cube, com, rot, joints_3d, pad_value=0):
+        """In-plane rotation of crop + joints (handdetector.py:716-751)."""
+        if np.allclose(rot, 0.0):
+            return dpt, joints_3d, rot
+        rot = np.mod(rot, 360)
+        M = rotation_matrix_2d((dpt.shape[1] // 2, dpt.shape[0] // 2), -rot,
+                               1)
+        new_dpt = warp_affine_nearest(dpt, M, (dpt.shape[1], dpt.shape[0]),
+                                      border=pad_value)
+        com3d = self.importer.joint_img_to_3d(np.asarray(com))
+        joint_2d = self.importer.joint_3d_to_img(joints_3d + com3d)
+        data_2d = rotate_points_2d(joint_2d, np.asarray(com[:2], np.float32),
+                                   rot)
+        new_joints = self.importer.joint_img_to_3d(data_2d) - com3d
+        return new_dpt, new_joints, rot
+
+    def scale_hand(self, dpt, cube, com, sc, joints_3d, M, pad_value=0):
+        """Virtual scale change via a different cube
+        (handdetector.py:754-784)."""
+        if np.allclose(sc, 1.0):
+            return dpt, joints_3d, cube, M
+        new_cube = [s * sc for s in cube]
+        if not np.allclose(com[2], 0.0):
+            Mnew = self.com_to_transform(com, new_cube, dpt.shape)
+            new_dpt = self.recrop_hand(dpt, Mnew, np.linalg.inv(M),
+                                       dpt.shape, background_value=pad_value,
+                                       nv_val=32000.0, thresh_z=True,
+                                       com=com, size=cube)
+        else:
+            Mnew, new_dpt = M, dpt
+        return new_dpt, joints_3d, new_cube, Mnew
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -1,16 +1,20 @@
-"""Batched training augment: host warp parameters, image work on a device.
+"""Batched training augment: host warp parameters, image work in one call.
 
 The port's copy of ``lsps_tpu/data/fast_augment.py`` (semantics of the
 reference ``augmentCrop``, dataset_hand2.py:34-119).  ``raw_batch`` draws
 each sample's mode, CoM offset, rotation and scale in the reference order
 on the dataset's ``RandomState`` and computes the labels and the warp
 parameters in numpy, bit for bit as the JAX package does.  The image work
-is :func:`lsps_tpu_torch.data.augment.recrop_normalize_batch`: inside the
-training step (``'step'``, the ``*_raw`` updates) or here in ``batch``
-(``'jax'``), on the trainer's device, copied back to the host.
+of a whole batch is then one call:
 
-Not ported (``ROADMAP.md``): the ``native`` backend, the fused C++ host
-kernel of ``native/lsps_native.cpp``.
+* ``'step'``: inside the training step (the trainer's ``*_raw`` updates,
+  :func:`lsps_tpu_torch.data.augment.recrop_normalize_batch`);
+* ``'jax'``: the same function here in ``batch``, on the trainer's device,
+  copied back to the host;
+* ``'native'``: the port's build of the C++ host library
+  (``lsps_tpu_torch/native``), bit-equal to the JAX package's ``native``
+  backend.  It rounds coordinates in double, half away from zero, so it
+  may pick another source pixel than the device augment at exact ties.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 from lsps_tpu_torch import resolve_device
 from lsps_tpu_torch.data.augment import (NV_VAL, PAD_VALUE,
                                          recrop_normalize_batch)
+from lsps_tpu_torch.data.basetypes import decode_dpt_u16
 from lsps_tpu_torch.data.detector import HandDetector
 
 
@@ -106,9 +111,10 @@ class FastAugmenter:
     """
 
     def __init__(self, dataset, backend: str = "step", device=None):
-        """backend: ``'step'`` (``raw_batch`` only) or ``'jax'``
-        (``batch``: the image work on ``device``, the card unless one is
-        named; without a card and a named device this raises)."""
+        """backend: ``'step'`` (``raw_batch`` only), ``'jax'`` (``batch``:
+        the image work on ``device``, the card unless one is named; without
+        a card and a named device this raises) or ``'native'`` (``batch``:
+        the C++ host library, built here if it is not built yet)."""
         self.ds = dataset
         self.di = dataset.di
         self.hd: HandDetector = dataset.hd
@@ -117,6 +123,10 @@ class FastAugmenter:
         self.backend = backend
         self.device = (resolve_device(device) if backend == "jax"
                        else device)
+        if backend == "native":
+            from lsps_tpu_torch import native
+
+            native.get_lib()
 
     def raw_batch(self, idxs):
         """Per-sample augment parameters without the image work:
@@ -253,13 +263,33 @@ class FastAugmenter:
 
     def batch(self, idxs) -> Tuple[np.ndarray, ...]:
         """One augmented batch: ``(imgs (B, 1, H, W), labels, com3d, Ms,
-        cubes)`` on the host, the images made on ``self.device``."""
-        if self.backend != "jax":
+        cubes)`` on the host, the images made on ``self.device`` (``jax``)
+        or by the host library (``native``)."""
+        if self.backend not in ("jax", "native"):
             raise ValueError(f"backend {self.backend!r} yields raw batches "
-                             "only; batch() needs 'jax'")
+                             "only; batch() needs 'jax' or 'native'")
         raw, labels, com3d_out, Ms, cubes = self.raw_batch(idxs)
         n = labels.shape[0]
-        imgs = recrop_normalize_batch(*raw, pad_value=PAD_VALUE,
-                                      nv_val=NV_VAL, device=self.device)
-        return (imgs.cpu().numpy()[:, None], labels.reshape(n, -1),
-                com3d_out, Ms, cubes)
+        if self.backend == "native":
+            from lsps_tpu_torch import native
+
+            if len(raw) == 8:  # uint16 codes: the library takes mm
+                raw = (decode_dpt_u16(raw[0], raw[7]),) + raw[1:7]
+            imgs = native.fused_recrop_normalize_batch(
+                *raw, pad_value=PAD_VALUE, nv_val=NV_VAL)
+        else:
+            imgs = recrop_normalize_batch(*raw, pad_value=PAD_VALUE,
+                                          nv_val=NV_VAL,
+                                          device=self.device).cpu().numpy()
+        return (imgs[:, None], labels.reshape(n, -1), com3d_out, Ms, cubes)
+
+
+def available(backend: str = "native") -> bool:
+    """Whether the given batched backend can run here: ``'native'`` needs
+    the C++ library to build and load; ``'jax'`` and ``'step'`` always
+    can (``'jax'`` on a named device, or on a card)."""
+    if backend in ("jax", "step"):
+        return True
+    from lsps_tpu_torch import native
+
+    return native.available()

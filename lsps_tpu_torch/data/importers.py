@@ -1,24 +1,36 @@
-"""Dataset importer base (host numpy).
+"""Dataset importers: the base, NYU and ICVL (host numpy).
 
-The port's copy of ``DepthImporter`` from ``lsps_tpu/data/importers.py``:
-the camera passthroughs, the per-frame crop step and the sequence API that
-the synthetic importer (``data/synthetic.py``) implements.  Joints are
-projected in numpy, as the JAX package's importers project them.
+The port's copy of ``lsps_tpu/data/importers.py``: the camera passthroughs,
+the per-frame crop step, the ``.npz`` sequence cache with its uint16 crops,
+and the NYU and ICVL importers that the configs ``exps/nnyu.yaml`` and
+``exps/nicvl.yaml`` select.  Sequences load into :class:`FrameArrays`; every
+field, and the cache's file name and keys, are the JAX package's bit for
+bit, so a cache written by either package loads in the other.
 
-Not ported here (``ROADMAP.md``): the NYU, ICVL, MSRA15 and POST importers
-and the ``.npz`` sequence cache with its uint16 crops; a run on real data
-waits for the datasets to be in the repository.
+Depth maps are PNGs, read with :func:`lsps_tpu_torch.data.png.read_png`
+where the JAX package uses PIL: NYU packs 16-bit depth into the green and
+blue bytes of RGB frames, ICVL stores 16-bit gray frames.  Labels come from
+``joint_data.mat`` (``scipy.io.loadmat``) and from per-sequence text files.
+
+Not ported here (``ROADMAP.md``): the MSRA15 and POST importers, which no
+config or dataset class of the JAX package selects.
 """
 
 from __future__ import annotations
 
+import os
+from typing import List
+
 import numpy as np
 
 from lsps_tpu_torch.data.basetypes import (DepthFrame, FrameArrays,
-                                           NamedImgSequence)
+                                           NamedImgSequence, decode_dpt_u16,
+                                           encode_dpt_u16)
 from lsps_tpu_torch.data.camera import Camera
 from lsps_tpu_torch.data.detector import HandDetector
+from lsps_tpu_torch.data.png import read_png
 from lsps_tpu_torch.data.transformations import transform_points_2d
+from lsps_tpu_torch.registry import register
 
 
 class DepthImporter:
@@ -81,6 +93,67 @@ class DepthImporter:
         return self.camera.depth_to_pcl(dpt, T, background_val)
 
     # ------------------------------------------------------------------
+    def _cache_path(self, seq_name, sub_seq, docom, cube) -> str:
+        """The JAX package's cache file name for this sequence."""
+        mode = HandDetector.detection_mode_to_string(docom, False)
+        sub = "" if sub_seq is None else "_" + "".join(sub_seq)
+        extra = self._cache_extra()
+        return os.path.join(
+            self.cache_dir,
+            f"{type(self).__name__}_{seq_name}{sub}_{self.hand}_{extra}"
+            f"{mode}_{int(cube[0])}.npz")
+
+    def _cache_extra(self) -> str:
+        return ""
+
+    def _load_cached(self, path, shuffle, rng, nmax):
+        if not (self.use_cache and os.path.isfile(path)):
+            return None
+        z = np.load(path, allow_pickle=True)
+        if "dpt_u16" in z:
+            # the half-size raw-mm form: the codes stay resident (the batch
+            # paths decode per batch), unless LSPS_CACHE_F32 asks for mm
+            dpt, vstar = z["dpt_u16"], z["dpt_vstar"]
+            if os.environ.get("LSPS_CACHE_F32"):
+                dpt, vstar = decode_dpt_u16(dpt, vstar), None
+        else:
+            dpt, vstar = z["dpt"], None
+        arrays = FrameArrays(
+            name=str(z["name"]), dpt=dpt, gtorig=z["gtorig"],
+            gtcrop=z["gtcrop"], M=z["M"], gt3Dorig=z["gt3Dorig"],
+            gt3Dcrop=z["gt3Dcrop"], com=z["com"],
+            config={"cube": tuple(z["cube"])},
+            file_names=list(z["file_names"]) if "file_names" in z else None,
+            dpt_vstar=vstar)
+        if shuffle and rng is not None:
+            arrays = arrays.shuffled(rng)
+        if np.isfinite(nmax):
+            arrays = arrays.take(np.arange(min(int(nmax), len(arrays))))
+        return arrays
+
+    def _save_cache(self, path, arrays: FrameArrays):
+        if not self.use_cache:
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        common = dict(
+            name=arrays.name, gtorig=arrays.gtorig,
+            gtcrop=arrays.gtcrop, M=arrays.M, gt3Dorig=arrays.gt3Dorig,
+            gt3Dcrop=arrays.gt3Dcrop, com=arrays.com,
+            cube=np.asarray(arrays.config["cube"], np.float32),
+            file_names=np.asarray(arrays.file_names or [], dtype=object))
+        if arrays.dpt.dtype == np.uint16:
+            enc = (arrays.dpt, arrays.dpt_vstar)
+        else:
+            # uint16 codes where lossless (half the bytes; encode_dpt_u16
+            # checks the round trip), float32 under LSPS_CACHE_F32
+            enc = (None if os.environ.get("LSPS_CACHE_F32")
+                   else encode_dpt_u16(arrays.dpt))
+        if enc is not None:
+            np.savez_compressed(path, dpt_u16=enc[0], dpt_vstar=enc[1],
+                                **common)
+        else:
+            np.savez_compressed(path, dpt=arrays.dpt, **common)
+
     def _crop_frame(self, dpt, gtorig, gt3Dorig, cube, docom, fname):
         """Shared per-frame crop step (reference importers.py:391-411)."""
         hd = HandDetector(dpt, self.fx, self.fy, importer=self)
@@ -106,3 +179,248 @@ class DepthImporter:
         arrays = self.load_sequence(seq_name, **kw)
         frames = [arrays.frame(i) for i in range(len(arrays))]
         return NamedImgSequence(arrays.name, frames, arrays.config)
+
+
+# ---------------------------------------------------------------------------
+@register("importer", "NYUImporter")
+class NYUImporter(DepthImporter):
+    """NYU hand dataset (reference importers.py:948-1383).
+
+    Depth PNGs pack 16-bit depth into (G << 8) | B; labels come from
+    ``joint_data.mat``; synthetic frames live in the same directory with a
+    ``synthdepth_`` prefix; per-subset crop cubes of 300/250 mm.
+    """
+
+    restricted_joints_eval = [0, 3, 6, 9, 12, 15, 18, 21, 24, 25, 27, 30,
+                              31, 32]  # importers.py:984
+
+    def __init__(self, basepath, use_cache=True, cache_dir="./cache/",
+                 all_joints=False, hand=None, com_idx=32, cube_size=300):
+        super().__init__(Camera.nyu(), basepath, use_cache, cache_dir, hand)
+        self.all_joints = all_joints
+        self.num_joints = 36
+        self.crop_joint_idx = com_idx if all_joints else 13
+        self.default_cubes = {
+            "train": (300, 300, 300), "test_1": (300, 300, 300),
+            "test_2": (250, 250, 250), "test": (300, 300, 300),
+            "train_synth": (300, 300, 300), "test_synth_1": (300, 300, 300),
+            "test_synth_2": (250, 250, 250), "test_synth": (300, 300, 300)}
+        self.sides = {k: "right" for k in self.default_cubes}
+
+    def _cache_extra(self):
+        return f"{self.all_joints}_{self.crop_joint_idx}_"
+
+    def load_depth_map(self, filename) -> np.ndarray:
+        """Unpack (G << 8) | B 16-bit depth (importers.py:987-1004)."""
+        arr = read_png(filename)
+        if arr.ndim != 3 or arr.shape[2] != 3:
+            raise ValueError(f"{filename}: an NYU depth map is RGB, got "
+                             f"shape {arr.shape}")
+        arr = arr.astype(np.int32)
+        dpt = (arr[..., 1] << 8) | arr[..., 2]
+        return dpt.astype(np.float32)
+
+    loadDepthMap = load_depth_map
+
+    def get_depth_map_nv(self):
+        return 32001  # importers.py:1006-1011
+
+    def load_sequence(self, seq_name, nmax=float("inf"), shuffle=False,
+                      rng=None, docom=False, cube=None) -> FrameArrays:
+        import scipy.io
+
+        config = {"cube": tuple(cube) if cube is not None
+                  else self.default_cubes[seq_name]}
+        cache = self._cache_path(seq_name, None, docom, config["cube"])
+        hit = self._load_cached(cache, shuffle, rng, nmax)
+        if hit is not None:
+            return hit
+
+        objdir = os.path.join(self.basepath,
+                              "train" if "train" in seq_name else seq_name)
+        mat = scipy.io.loadmat(os.path.join(objdir, "joint_data.mat"))
+        joints3d = mat["joint_xyz"][0]
+        joints2d = mat["joint_uvd"][0]
+        eval_idxs = (np.arange(36) if self.all_joints
+                     else np.asarray(self.restricted_joints_eval))
+        self.num_joints = len(eval_idxs)
+
+        prefix = "synthdepth_" if "synth" in seq_name else "depth_"
+        frames: List[DepthFrame] = []
+        for line in range(joints3d.shape[0]):
+            fname = os.path.join(objdir, f"{prefix}1_{line + 1:07d}.png")
+            if not os.path.isfile(fname):
+                continue
+            dpt = self.load_depth_map(fname)
+            gtorig = joints2d[line][eval_idxs].astype(np.float32)
+            gt3Dorig = joints3d[line][eval_idxs].astype(np.float32)
+            f = self._crop_frame(dpt, gtorig, gt3Dorig, config["cube"],
+                                 docom, fname)
+            if f is not None:
+                frames.append(f)
+            if len(frames) >= nmax:
+                break
+
+        arrays = FrameArrays.from_frames(seq_name, frames, config)
+        self._save_cache(cache, arrays)
+        if shuffle and rng is not None:
+            arrays = arrays.shuffled(rng)
+        return arrays
+
+    def load_baseline(self, filename, gt=None):
+        """3rd-party prediction reader (importers.py:1152-1218): with
+        ``gt``, a ``.mat`` of (u, v, confidence) predictions whose depth is
+        read from the depth maps beside it; else a text file of (u, v, d)
+        rows."""
+        import scipy.io
+
+        if gt is not None:
+            mat = scipy.io.loadmat(filename)
+            joints = mat["pred_joint_uvconf"][0]
+            self.num_joints = mat["conv_joint_names"][0].shape[0]
+            data = []
+            for dat in range(min(joints.shape[0], gt.shape[0])):
+                fname = os.path.join(os.path.split(filename)[0],
+                                     f"depth_1_{dat + 1:07d}.png")
+                if not os.path.isfile(fname):
+                    continue
+                dm = self.load_depth_map(fname)
+                ev = np.zeros((self.num_joints, 3), np.float32)
+                jt = 0
+                for i in range(joints.shape[1]):
+                    if np.count_nonzero(joints[dat, i, :]) == 0:
+                        continue
+                    ev[jt, 0] = joints[dat, i, 0]
+                    ev[jt, 1] = joints[dat, i, 1]
+                    ev[jt, 2] = dm[int(ev[jt, 1]), int(ev[jt, 0])]
+                    jt += 1
+                bad = np.abs(ev[:, 2] - gt[dat, 13, 2]) > 150.0
+                ev[bad, 2] = gt[dat, bad, 2]
+                data.append(self.joint_img_to_3d(ev))
+            return data
+        data = []
+        with open(filename) as f:
+            for line in f:
+                line = line.rstrip()
+                if not line:
+                    continue
+                vals = np.asarray(line.split(" "), np.float32)
+                data.append(self.joint_img_to_3d(vals.reshape(-1, 3)))
+        return data
+
+
+# ---------------------------------------------------------------------------
+@register("importer", "ICVLImporter")
+class ICVLImporter(DepthImporter):
+    """ICVL dataset (reference importers.py:191-595).
+
+    Single-channel 16-bit depth PNGs + a label txt per sequence.  Frames
+    are mirrored horizontally and u-coordinates flipped
+    (importers.py:381-383); crop around joint 0.
+    """
+
+    def __init__(self, basepath, use_cache=True, cache_dir="./cache/",
+                 hand=None):
+        super().__init__(Camera.icvl(), basepath, use_cache, cache_dir, hand)
+        self.num_joints = 16
+        self.crop_joint_idx = 0
+        self.default_cubes = {"train": (250, 250, 250),
+                              "test_seq_1": (250, 250, 250),
+                              "test_seq_2": (250, 250, 250)}
+        self.sides = {"train": "right", "test_seq_1": "right",
+                      "test_seq_2": "right"}
+
+    def load_depth_map(self, filename) -> np.ndarray:
+        arr = read_png(filename)
+        if arr.ndim != 2:
+            raise ValueError(f"{filename}: an ICVL depth map is gray, got "
+                             f"shape {arr.shape}")
+        return arr.astype(np.float32)
+
+    loadDepthMap = load_depth_map
+
+    def get_depth_map_nv(self):
+        return 32001
+
+    def load_sequence(self, seq_name, sub_seq=None, nmax=float("inf"),
+                      shuffle=False, rng=None, docom=False,
+                      cube=None) -> FrameArrays:
+        if sub_seq is not None and not isinstance(sub_seq, list):
+            raise TypeError("sub_seq must be None or list")
+        config = {"cube": tuple(cube) if cube is not None
+                  else self.default_cubes[seq_name]}
+        cache = self._cache_path(seq_name, sub_seq, docom, config["cube"])
+        hit = self._load_cached(cache, shuffle, rng, nmax)
+        if hit is not None:
+            return hit
+
+        objdir = os.path.join(self.basepath, "Depth")
+        labels = os.path.join(self.basepath, f"{seq_name}.txt")
+        frames: List[DepthFrame] = []
+        with open(labels) as f:
+            for line in f:
+                if len(frames) >= nmax:
+                    break
+                part = line.split(" ")
+                # subsequence filter (importers.py:342-360): directories
+                # with names longer than 6 characters are the unrotated
+                # originals ('0')
+                if sub_seq is not None:
+                    p0 = part[0].split("/")[0]
+                    is_orig = len(p0) > 6
+                    if is_orig and "0" not in sub_seq:
+                        continue
+                    if not is_orig and p0 not in sub_seq:
+                        continue
+                fname = os.path.join(objdir, part[0])
+                if not os.path.isfile(fname):
+                    continue
+                dpt = self.load_depth_map(fname)
+                gtorig = np.asarray(part[1:1 + self.num_joints * 3],
+                                    np.float32).reshape(self.num_joints, 3)
+                # horizontal flip (importers.py:381-383)
+                dpt = np.fliplr(dpt).copy()
+                gtorig[:, 0] = self.depth_map_size[0] - gtorig[:, 0]
+                gt3Dorig = self.joint_img_to_3d(gtorig)
+                fr = self._crop_frame(dpt, gtorig, gt3Dorig, config["cube"],
+                                      docom, fname)
+                if fr is not None:
+                    frames.append(fr)
+
+        arrays = FrameArrays.from_frames(seq_name, frames, config)
+        self._save_cache(cache, arrays)
+        if shuffle and rng is not None:
+            arrays = arrays.shuffled(rng)
+        return arrays
+
+    def load_baseline(self, filename, first_name=False):
+        """Baseline txt reader (importers.py:431-465)."""
+        off = 1 if first_name else 0
+        data = []
+        with open(filename) as f:
+            for line in f:
+                line = line.rstrip()
+                if not line:
+                    continue
+                part = line.strip().split(" ")
+                vals = np.asarray(part[off:off + self.num_joints * 3],
+                                  np.float32).reshape(self.num_joints, 3)
+                data.append(self.joint_img_to_3d(vals))
+        return data
+
+    def load_baseline_2d(self, filename, first_name=False):
+        """2D baseline reader (importers.py:467-493)."""
+        off = 1 if first_name else 0
+        data = []
+        with open(filename) as f:
+            for line in f:
+                line = line.rstrip()
+                if not line:
+                    continue
+                part = line.split(" ")
+                ev = np.zeros((self.num_joints, 2), np.float32)
+                for j in range(self.num_joints):
+                    ev[j, 0] = float(part[j * 3 + off])
+                    ev[j, 1] = float(part[j * 3 + 1 + off])
+                data.append(ev)
+        return data

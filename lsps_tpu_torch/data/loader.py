@@ -6,21 +6,19 @@ shuffle order each epoch, the final short batch included (the loops skip
 it), mid-epoch resume (``iter_from``) and the shuffle state
 (``get_state`` / ``set_state``).
 
-``LSPS_AUGMENT`` selects the augment of the augmented training datasets:
+``LSPS_AUGMENT`` selects the augment of the augmented training datasets,
+as in the JAX package:
 
-* ``step`` (the port's default): the loader yields warp parameters only,
-  and the image work runs inside the training step (the trainer's
-  ``*_raw`` updates);
+* ``host`` (the default): per-sample items (``dataset[i]``, the numpy
+  warps of ``data/detector.py``), stacked into batches;
+* ``native`` (also ``LSPS_NATIVE=1``): one call per batch into the port's
+  build of the C++ host library (``lsps_tpu_torch/native``);
 * ``jax``: the images are made in the loader thread, on the trainer's
   device (``data/augment.py``), and copied to the host before the batch is
   queued.  The name is the JAX package's, kept so that scripts run
   unchanged against either package;
-* ``host`` and ``native`` raise: they need the cv2 warps and the C++ host
-  kernel, which the port does not have yet (``ROADMAP.md``).
-
-The JAX package's default, with ``LSPS_AUGMENT`` unset, is ``host``; the
-port's is ``step``, because the card's machine has no cv2.  That is the
-one deliberate difference from the JAX package's CLIs.
+* ``step``: the loader yields warp parameters only, and the image work
+  runs inside the training step (the trainer's ``*_raw`` updates).
 """
 
 from __future__ import annotations
@@ -32,14 +30,9 @@ from typing import Iterator
 
 import numpy as np
 
-DEFAULT_AUGMENT = "step"
+DEFAULT_AUGMENT = "host"
+BACKENDS = ("host", "native", "jax", "step")
 PREFETCH = 2  # batches the producer thread may run ahead
-DEFERRED_AUGMENT = {
-    "host": "the host augment backend (per-sample cv2 warps: "
-            "HandDetector.recrop_hand/move_com/rotate_hand/scale_hand)",
-    "native": "the native augment backend (a port copy of "
-              "native/lsps_native.cpp)",
-}
 
 
 def _stack(samples):
@@ -55,16 +48,18 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  seed: int = 0, fast: bool = False,
-                 fast_backend: str = DEFAULT_AUGMENT, device=None):
-        """``device``: where the ``jax`` backend makes its images (the
+                 fast_backend: str = "step", device=None):
+        """``fast``: one augment call per batch, through ``fast_backend``
+        (``native``, ``jax`` or ``step``); else per-sample items.
+        ``device``: where the ``jax`` backend makes its images (the
         trainer's); ``None`` is the card, and raises without one."""
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.device = device
         self._rng = np.random.RandomState(seed)
-        # the batched augment: 'jax' makes images here, 'step' leaves the
-        # image work to the training step (raw params only)
+        # the batched augment: 'native' and 'jax' make images here, 'step'
+        # leaves the image work to the training step (raw params only)
         self.fast = bool(fast and hasattr(dataset, "enable_fast_augment")
                          and dataset.enable_fast_augment(fast_backend,
                                                          device))
@@ -165,18 +160,13 @@ class DataLoader:
 
 
 def augment_backend() -> str:
-    """The augment backend ``LSPS_AUGMENT`` names (``step`` when unset);
-    raises for a backend the port does not have."""
+    """The augment backend ``LSPS_AUGMENT`` names (``host`` when unset,
+    ``native`` when unset and ``LSPS_NATIVE=1``)."""
     backend = os.environ.get("LSPS_AUGMENT", "").lower()
     if not backend and os.environ.get("LSPS_NATIVE", "0") == "1":
         backend = "native"
     backend = backend or DEFAULT_AUGMENT
-    if backend in DEFERRED_AUGMENT:
-        raise ValueError(
-            f"LSPS_AUGMENT={backend}: {DEFERRED_AUGMENT[backend]} is not "
-            "ported yet (ROADMAP.md, queue 1 #14: the data pipeline's "
-            "deferred parts); use LSPS_AUGMENT=step (the default) or jax")
-    if backend not in ("jax", "step"):
+    if backend not in BACKENDS:
         raise ValueError(
             f"LSPS_AUGMENT={backend!r} is not one of host|native|jax|step")
     return backend
@@ -188,8 +178,10 @@ def get_data_loader(dataset, batch_size: int, shuffle: bool,
     ``LSPS_AUGMENT`` (:func:`augment_backend`); ``device`` is where the
     ``jax`` backend makes its images (the trainer's): the card unless one is
     named, as for every entry point of the port."""
-    return DataLoader(dataset, batch_size, shuffle, seed=seed, fast=True,
-                      fast_backend=augment_backend(), device=device)
+    backend = augment_backend()
+    return DataLoader(dataset, batch_size, shuffle, seed=seed,
+                      fast=backend != "host", fast_backend=backend,
+                      device=device)
 
 
 def get_dataset(conf: dict):
@@ -198,6 +190,7 @@ def get_dataset(conf: dict):
     from lsps_tpu_torch.registry import lookup
 
     # import for the datasets' registration
+    import lsps_tpu_torch.data.datasets  # noqa: F401
     import lsps_tpu_torch.data.synthetic  # noqa: F401
 
     return lookup("dataset", conf["class_name"])(conf)

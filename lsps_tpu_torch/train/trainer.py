@@ -23,6 +23,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -194,6 +195,13 @@ class LSPSTrainer:
     # ------------------------------------------------------------------
     def _to(self, x) -> torch.Tensor:
         dtype = self.dis.D.weight.dtype
+        if isinstance(x, np.ndarray):
+            # one layout whatever view the caller hands over (a transposed
+            # loader batch, a slice of a stacked chunk): the convs' CPU
+            # algorithm, and so its rounding, follows the strides, even
+            # those of the size-1 channel dimension, which numpy's
+            # contiguity ignores; a copy has the canonical ones
+            x = np.array(x, order="C")
         return torch.as_tensor(x, device=self.device).to(dtype)
 
     def _cd(self, x: torch.Tensor) -> torch.Tensor:

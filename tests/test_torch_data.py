@@ -235,9 +235,15 @@ def test_dataset_pose_sampling_nmax_and_items_match_jax():
 
 
 def test_augmented_image_item_raises_and_names_the_roadmap_item():
-    p, _ = _datasets()
-    with pytest.raises(NotImplementedError, match="host augment"):
-        p[0]
+    """The augmented image item of the synthetic dataset, which raised
+    until the per-sample host augment was ported: now the JAX dataset's
+    item for item, over two passes, the RandomState left behind
+    included."""
+    p, j = _datasets()
+    for rep in range(2):
+        for i in range(len(p)):
+            _tree_equal(p[i], j[i], f"augmented item {i} pass {rep}")
+    _equal(p.rng.get_state()[1], j.rng.get_state()[1], "rng state")
 
 
 def test_fast_augmenter_raw_batch_matches_jax():
@@ -298,13 +304,30 @@ def test_loader_state_iter_from_and_disable_raw(monkeypatch):
 
 @pytest.mark.parametrize("value", ["host", "native", "bogus"])
 def test_loader_refuses_backends_the_port_lacks(value, monkeypatch):
-    monkeypatch.setenv("LSPS_AUGMENT", value)
-    match = "ROADMAP" if value != "bogus" else "not one of"
-    with pytest.raises(ValueError, match=match):
-        ploader.augment_backend()
+    """The port has every backend of the JAX package now: ``host`` and
+    ``native`` are taken as they are (upper case too), and only a name
+    that is none of them raises."""
+    monkeypatch.setenv("LSPS_AUGMENT", value.upper())
+    if value == "bogus":
+        with pytest.raises(ValueError, match="not one of"):
+            ploader.augment_backend()
+    else:
+        assert ploader.augment_backend() == value
 
 
 def test_loader_default_is_step(monkeypatch):
+    """``LSPS_AUGMENT`` unset means ``host``, as in the JAX package (it
+    meant ``step`` before the host augment was ported), ``LSPS_NATIVE=1``
+    then means ``native``, and ``step`` is taken when it is named."""
     monkeypatch.delenv("LSPS_AUGMENT", raising=False)
     monkeypatch.delenv("LSPS_NATIVE", raising=False)
+    assert ploader.augment_backend() == "host"
+    monkeypatch.setenv("LSPS_NATIVE", "1")
+    assert ploader.augment_backend() == "native"
+    monkeypatch.setenv("LSPS_AUGMENT", "step")
     assert ploader.augment_backend() == "step"
+    p, _ = _datasets(n_frames=4)
+    monkeypatch.delenv("LSPS_AUGMENT")
+    monkeypatch.delenv("LSPS_NATIVE")
+    lp = ploader.get_data_loader(p, 2, shuffle=True)
+    assert not lp.fast and not lp.raw

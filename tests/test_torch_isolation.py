@@ -2,8 +2,9 @@
 of the root scripts that drive it on the card (``chip_smoke.py``,
 ``warp_sweep.py``, ``detect_hist.py``) imports JAX or ``lsps_tpu``, nor
 any of ``cv2``, ``PIL``, ``matplotlib``, ``tensorboardX`` and ``orbax``,
-which the card's machine lacks.  Checked in a fresh interpreter, since
-this test process already holds JAX and cv2.  Also holds the kernel
+which the card's machine lacks (the PNG reader and the augment warps are
+numpy; the native augment library is the port's own build).  Checked in
+a fresh interpreter, since this test process already holds JAX and cv2.  Also holds the kernel
 wrappers (the two warp entries and the four norm kernels) to their
 contract: CPU tensors run the plain version, a launch counter exists and
 only kernel launches move it, other devices raise; and the crop warp is
@@ -51,11 +52,18 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(out["names"]) >= 49
+    assert len(out["names"]) >= 51
     # the training augment, the checkpoints, the CLIs, the loader, the
-    # daemon, the export, the latent walk and the checkpoint loader are
-    # among the modules held
-    assert {"lsps_tpu_torch.data.augment",
+    # daemon, the export, the latent walk, the checkpoint loader, the PNG
+    # reader, the real-data importers and datasets and the native augment
+    # library's bindings are among the modules held
+    assert {"lsps_tpu_torch.data.png",
+            "lsps_tpu_torch.data.importers",
+            "lsps_tpu_torch.data.datasets",
+            "lsps_tpu_torch.data.detector",
+            "lsps_tpu_torch.data.fast_augment",
+            "lsps_tpu_torch.native",
+            "lsps_tpu_torch.data.augment",
             "lsps_tpu_torch.train.checkpoint",
             "lsps_tpu_torch.cli.depth_train",
             "lsps_tpu_torch.cli.pose_train",

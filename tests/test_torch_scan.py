@@ -103,3 +103,28 @@ def test_vae_scan_k3():
         _close(dec, jdec)
         check_params(port, state, ("vae",), "vae_scan")
     assert port.step == 3
+
+
+def test_image_scan_equals_single_steps_on_loader_views():
+    """The CLIs give an image step the loader's (B, 1, H, W) batch
+    transposed to NHWC, a view whose size-1 channel has a large stride,
+    and a scan the slices of a stacked chunk: the same values in other
+    strides, by which the CPU convs choose their rounding.  In float32,
+    two single steps on the views and a K=2 scan of the same batches
+    leave the same parameters, bit for bit."""
+    steps = []
+    for k in range(2):
+        xa, la, xb, lb = (np.asarray(v, np.float32) for v in batch(k))
+        xa, xb = (np.transpose(np.transpose(x, (0, 3, 1, 2)).copy(),
+                               (0, 2, 3, 1)) for x in (xa, xb))
+        assert xa.strides[-1] != 4
+        steps.append((xa, la, xb, lb))
+    _, _, single = pair(dtype=jnp.float32)
+    _, _, scanned = pair(dtype=jnp.float32)
+    for s in steps:
+        single.pretrain_update(*s, with_viz=False)
+    scanned.pretrain_scan(*(np.stack([s[i] for s in steps])
+                            for i in range(4)), with_viz=False)
+    for (name, a), b in zip(single.nets.named_parameters(),
+                            scanned.nets.parameters()):
+        assert torch.equal(a, b), name
