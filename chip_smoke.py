@@ -122,7 +122,25 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     the latent walk (``cli.latent_walk.main``, 16 steps: the AVI and the
     strip, finite frames, 15 IN + LeakyReLU launches, the walk within 1e-3
     of the same walk on the CPU);
-13. print the ``kernels`` line, the card's name and power limit, and last
+13. data parallelism (``lsps_tpu_torch/parallel``) at nnyu widths: (a)
+    two ranks sharing the card under gloo, started by ``python -m
+    torch.distributed.run --nproc-per-node 2 chip_smoke.py --dp-rank
+    SPEC``, take three ``pretrain_update_raw`` steps at global batch 32
+    (16 a rank), TF32 off and cuDNN deterministic, held against one
+    process at batch 32 (losses 1e-4) with every rank's parameters bit for
+    bit rank 0's after every step; (b) an NCCL group of one rank, two
+    steps against the no-mesh trainer; (c) in the same two ranks,
+    ``depth_train --mesh-data 2`` pretrain and estimate3 (from the CLI
+    phase's snapshots, the sharded eval over 31 test frames, padded to 32)
+    against ``--mesh-data 0`` at the same global batch: first-iteration
+    losses 1e-4, the eval's mean error 1e-3; (d) ``PoseEstimator(devices=(card, card))`` at batch 32
+    against the single estimator, two crop launches a call; (e) the IN +
+    LeakyReLU launches per rank and step (44 / 30).  It prints each rank's
+    ms per step, peak memory and the gradient all-reduce's ms per step
+    beside the card's name and power limit: two ranks sharing one card,
+    not a scaling figure (``python3 chip_smoke.py --dp-cards`` runs part
+    (a) with one NCCL rank on each card of a machine with several);
+14. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -3094,6 +3112,480 @@ def phase_walk(torch, dev, cfg, prefix, tmp):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: ranks over torch.distributed, sharded serving
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2           # two ranks share the one card (gloo, by the rule)
+DP_BATCH = 32          # the global batch of the trainer part: 16 a rank
+DP_STEPS = 3
+DP_NCCL_STEPS = 2
+DP_CLI_ITERS = 2       # the estimate3 eval at 2
+DP_CUTS = {
+    # 31 test frames: the last (only) test batch is odd, padded to 32
+    "n_frames": {"train_a": 32, "train_b": 32, "test_b": 31},
+    "display": 1, "image_display_iterations": 2,
+    "image_save_iterations": 2,
+    "snapshot_save_iterations": 1000,  # no ~46 s snapshot write
+}
+DP_EVAL_RTOL = 1e-3    # the eval's mean error, --mesh-data 2 against 0
+DP_TIMEOUT_S = 420
+
+
+def dp_config(cli_cfg, tmp):
+    """The CLI phase's cut config with the cuts of ``DP_CUTS``."""
+    import yaml
+
+    doc = yaml.safe_load(Path(cli_cfg).read_text())
+    train = doc["train"]
+    for k, v in DP_CUTS.items():
+        if k != "n_frames":
+            train[k] = v
+    for name, n in DP_CUTS["n_frames"].items():
+        train["datasets"][name]["n_frames"] = n
+    path = tmp / "synth_full_dp.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    return str(path)
+
+
+def dp_steps(torch, trainer, reg, mesh=None, steps=DP_STEPS):
+    """``steps`` pretrain_update_raw at the global batch ``DP_BATCH`` from
+    numpy seeds (each rank of a mesh trains on its rows); per step the
+    metrics, the host ms of the step (collectives included) and, under a
+    mesh, whether every rank held rank 0's parameters bit for bit after
+    it."""
+    rows = []
+    for k in range(steps):
+        raw = raw_step_batch(DP_BATCH, 60 + k, reg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met, _ = trainer.pretrain_update_raw(*raw, with_viz=False)
+        torch.cuda.synchronize()
+        row = {"metrics": {n: float(v) for n, v in met.items()},
+               "ms": (time.perf_counter() - t0) * 1e3}
+        if mesh is not None:
+            row["same_as_rank0"] = mesh.same_across_ranks(
+                list(trainer.nets.parameters()))
+        rows.append(row)
+    return rows
+
+
+def allreduce_ms(torch, mesh, trainer, reps=5):
+    """Host ms of a pretrain step's gradient all-reduces (the dis
+    optimizer's, then the gen + map optimizer's gradients; zeros of their
+    shapes) and the megabytes they carry."""
+    sets = [[torch.zeros_like(p) for p in opt.params]
+            for opt in (trainer.dis_opt, trainer.gen_opt)]
+    for s in sets:
+        mesh.allreduce_mean_(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for s in sets:
+            mesh.allreduce_mean_(s)
+    torch.cuda.synchronize()
+    mb = sum(t.numel() * t.element_size() for s in sets for t in s) / 1e6
+    return (time.perf_counter() - t0) * 1e3 / reps, mb
+
+
+def dp_rank(spec_path):
+    """One rank of ``phase_dp``, started by ``torch.distributed.run``: the
+    trainer at nnyu widths (TF32 off) for ``DP_STEPS`` raw steps at the
+    global batch, then the spec's ``depth_train --mesh-data`` runs in the
+    same process group; writes what it saw to ``<out>/rank<r>.json``."""
+    import gc
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from lsps_tpu_torch.cli import depth_train
+    from lsps_tpu_torch.config import load_config
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.parallel import DataMesh, initialize, rank_device
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    spec = json.loads(Path(spec_path).read_text())
+    ok, reason = initialize(on_cuda=True)
+    if not ok:
+        raise RuntimeError(f"rank: the process group failed: {reason}")
+    try:
+        dev = rank_device(True, int(os.environ["LOCAL_RANK"]))
+        mesh = DataMesh.from_group(dev)
+        # TF32 off and cuDNN deterministic, as (a) and (b) run in the
+        # parent: what is left between the ranks and one process is the
+        # batch's split
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        hyp = load_config(str(Path(__file__).resolve().parent / "exps"
+                              / "nnyu.yaml")).hyperparameters
+        sd = seeded_state_dict(hyp, seed=1, nets=("dis", "gen", "vae", "map"))
+        out = {"rank": mesh.rank, "backend": mesh.backend,
+               "device": str(dev), "card": torch.cuda.get_device_name(dev)}
+        trainer = LSPSTrainer(hyp, sd, device=dev, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_norm_launches(N)
+        out["steps"] = dp_steps(torch, trainer, hyp["vae"]["input_dim"],
+                                mesh)
+        torch.cuda.synchronize()
+        out["launches"] = norm_launches(N)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        out["allreduce_ms"], out["allreduce_mb"] = allreduce_ms(
+            torch, mesh, trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["cli"] = []
+        for argv in spec["cli"]:
+            buf = io.StringIO()
+            zero_norm_launches(N)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), \
+                    unittest.mock.patch.dict(os.environ,
+                                             {"LSPS_AUGMENT": "step"}):
+                depth_train.main(argv)
+            torch.cuda.synchronize()
+            out["cli"].append({"wall_s": time.perf_counter() - t0,
+                               "launches": norm_launches(N),
+                               "stdout": buf.getvalue()[-6000:]})
+        Path(spec["out"], f"rank{mesh.rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(spec_path, out_dir, world=DP_WORLD):
+    """``python -m torch.distributed.run --nproc-per-node WORLD
+    chip_smoke.py --dp-rank SPEC`` in a session of its own, killed whole
+    at the deadline; its output into ``out_dir``."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(world), "--master-addr", "127.0.0.1",
+           "--master-port", str(free_port()),
+           str(Path(__file__).resolve()), "--dp-rank", str(spec_path)]
+    with open(out_dir / "ranks.out", "w") as fo, \
+            open(out_dir / "ranks.err", "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                stdout=fo, stderr=fe,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if rc != 0:
+        log((out_dir / "ranks.err").read_text()[-6000:])
+        raise AssertionError(f"data-parallel ranks: exit {rc}")
+
+
+def rel_close(got, want, rtol, what):
+    """Every number of ``want`` within ``rtol`` relative of ``got``'s;
+    returns the worst relative gap."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not (math.isfinite(g) and math.isfinite(w)):
+            raise AssertionError(f"{what}: {k} not finite ({g}, {w})")
+        rel = abs(g - w) / max(abs(w), 1e-12)
+        worst = max(worst, rel)
+        if rel > rtol:
+            raise AssertionError(f"{what}: {k} {g} vs {w}")
+    return worst
+
+
+def first_metrics(log_dir):
+    rows = [json.loads(line) for line in next(Path(log_dir).glob(
+        "*/metrics.jsonl")).read_text().splitlines()]
+    return {k: v for k, v in rows[0].items()
+            if "loss" in k or "acc" in k}
+
+
+def dp_against_one_process(torch, dev, hyp, train_sd, ranks, backend):
+    """Part (a) of ``phase_dp`` read from the ranks' files: every rank's
+    losses within ``STEP_LOSS_RTOL`` of one process's at the global batch
+    (TF32 off, cuDNN deterministic), its parameters rank 0's after every
+    step, 44 / 30 IN + LeakyReLU launches per step.  Returns (the worst
+    gap by step, one process's steps)."""
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    joint, one_way = in_act_counts(hyp["gen"])
+    with tf32_off(torch, deterministic=True):
+        single = LSPSTrainer(hyp, train_sd, device=dev)
+        zero_norm_launches(N)
+        ref = dp_steps(torch, single, hyp["vae"]["input_dim"])
+        torch.cuda.synchronize()
+        single_launches = norm_launches(N)
+        del single
+    want = {"in_act_forward": (2 * joint + 2 * one_way) * DP_STEPS,
+            "in_act_backward": (joint + 2 * one_way) * DP_STEPS,
+            "in_res_forward": 0, "in_res_backward": 0}
+    by_step = [0.0] * DP_STEPS
+    for r in ranks:
+        if r["backend"] != backend:
+            raise AssertionError(f"{len(ranks)} ranks: backend "
+                                 f"{r['backend']}, want {backend}")
+        for k, (got, one) in enumerate(zip(r["steps"], ref)):
+            if not got["same_as_rank0"]:
+                raise AssertionError(f"rank {r['rank']} step {k}: "
+                                     "parameters differ from rank 0's")
+            by_step[k] = max(by_step[k], rel_close(
+                got["metrics"], one["metrics"], STEP_LOSS_RTOL,
+                f"rank {r['rank']} step {k} vs one process"))
+        if r["launches"] != want or single_launches != want:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['launches']}, one process "
+                                 f"{single_launches}, want {want}")
+    return by_step, ref
+
+
+def phase_dp_cards(torch, dev):
+    """``python3 chip_smoke.py --dp-cards``: part (a) of ``phase_dp`` with
+    one rank on each card of the machine (NCCL), against one process on
+    ``dev``; prints each rank's ms per step, peak memory and all-reduce ms
+    per step beside the card's name and power limit."""
+    import shutil
+
+    from lsps_tpu_torch.config import load_config
+
+    n = torch.cuda.device_count()
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "smoke_dp_cards"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    phase_build()
+    (out_dir / "spec.json").write_text(json.dumps({"out": str(out_dir),
+                                                   "cli": []}))
+    t0 = time.perf_counter()
+    launch_ranks(out_dir / "spec.json", out_dir, world=n)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(n)]
+    hyp = load_config(str(root / "exps" / "nnyu.yaml")).hyperparameters
+    sd = seeded_state_dict(hyp, seed=1, nets=("dis", "gen", "vae", "map"))
+    by_step, ref = dp_against_one_process(torch, dev, hyp, sd, ranks,
+                                          "nccl" if n > 1 else "gloo")
+    row = {"cards": n, "card": gpu_name_and_power(),
+           "ranks_wall_s": ranks_s, "global_batch": DP_BATCH,
+           "rank_devices": [r["device"] for r in ranks],
+           "rank_ms_per_step": [[s["ms"] for s in r["steps"]]
+                                for r in ranks],
+           "one_process_ms_per_step": [s["ms"] for s in ref],
+           "rank_peak_gib": [r["peak_gib"] for r in ranks],
+           "allreduce_ms_per_step": [r["allreduce_ms"] for r in ranks],
+           "allreduce_mb_per_step": ranks[0]["allreduce_mb"],
+           "loss_rel_vs_one_process_by_step": by_step,
+           "launches_per_rank_step": [
+               {k: v / DP_STEPS for k, v in r["launches"].items()}
+               for r in ranks]}
+    log("data-parallel over cards " + json.dumps(row))
+    shutil.rmtree(out_dir)
+    return 0
+
+
+def phase_dp(torch, dev, hyp, train_sd, serve_sd, cli_cfg, cli_prefix,
+             tmp):
+    """Data parallelism at nnyu widths: (a) two ranks sharing the card
+    (gloo) against one process at the global batch, TF32 off and cuDNN
+    deterministic, every rank's
+    parameters bit for bit rank 0's after every step; (b) an NCCL group of
+    one rank against the no-mesh trainer; (c) ``depth_train --mesh-data
+    2`` under ``torch.distributed.run`` (pretrain, then estimate3 from the
+    CLI phase's snapshots with the sharded eval over an odd test set)
+    against ``--mesh-data 0`` at the same global batch; (d) a two-replica
+    ``PoseEstimator`` against the single one; (e) the IN + LeakyReLU
+    launches per rank and step.  Returns (the phase's row, the launches by
+    path)."""
+    import torch.distributed as dist
+
+    from lsps_tpu_torch.cli import depth_train
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.parallel import DataMesh
+    from lsps_tpu_torch.serve.inference import PoseEstimator
+    from lsps_tpu_torch.train import LSPSTrainer
+
+    t_phase = time.perf_counter()
+    reg = hyp["vae"]["input_dim"]
+    joint, one_way = in_act_counts(hyp["gen"])
+    pre_fwd, pre_bwd = 2 * joint + 2 * one_way, joint + 2 * one_way
+    out_dir = tmp / "dp"
+    out_dir.mkdir()
+    cfg = dp_config(cli_cfg, out_dir)
+
+    def argv(mode, prefix, name, mesh):
+        a = ["--config", cfg, "--device", device_flag(dev),
+             "--log", str(out_dir / "logs" / name),
+             "--snapshot-prefix", str(prefix), "--batch-size",
+             str(CLI_BATCH), "--max-iterations", str(DP_CLI_ITERS)]
+        a += (["--mode", "pretrain"] if mode == "pretrain" else
+              ["--mode", "estimate3", "--frac", "0.5"])
+        return a + (["--mesh-data", str(DP_WORLD)] if mesh else [])
+
+    spec = {"out": str(out_dir), "cli": [
+        argv("pretrain", out_dir / "mesh" / "pre", "pre_mesh", True),
+        argv("estimate3", cli_prefix, "est_mesh", True)]}
+    (out_dir / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    launch_ranks(out_dir / "spec.json", out_dir)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DP_WORLD)]
+
+    # (a) two ranks (gloo: they share the card) against one process
+    by_step, ref = dp_against_one_process(torch, dev, hyp, train_sd, ranks,
+                                          "gloo")
+    worst = max(by_step)
+
+    # (b) an NCCL group of one rank
+    with tf32_off(torch, deterministic=True):
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = DataMesh.from_group(dev)
+            if mesh.backend != "nccl":
+                raise AssertionError(f"NCCL group: backend {mesh.backend}")
+            t = LSPSTrainer(hyp, train_sd, device=dev, mesh=mesh)
+            zero_norm_launches(N)
+            nccl = dp_steps(torch, t, reg, mesh, steps=DP_NCCL_STEPS)
+            torch.cuda.synchronize()
+            nccl_launches = norm_launches(N)
+            del t
+        finally:
+            dist.destroy_process_group()
+    nccl_by_step = [rel_close(g["metrics"], w["metrics"], STEP_LOSS_RTOL,
+                              f"NCCL rank step {k} vs no mesh")
+                    for k, (g, w) in enumerate(zip(nccl, ref))]
+    nccl_worst = max(nccl_by_step)
+    if nccl_launches["in_act_forward"] != pre_fwd * DP_NCCL_STEPS or \
+            nccl_launches["in_act_backward"] != pre_bwd * DP_NCCL_STEPS:
+        raise AssertionError(f"NCCL rank launches {nccl_launches}")
+
+    # (c) the CLIs, --mesh-data 2 against 0 at the same global batch
+    with tf32_off(torch, deterministic=True):
+        pre0 = run_cli(torch, depth_train, argv(
+            "pretrain", out_dir / "single" / "pre", "pre_single", False),
+            augment="step")
+        est0 = run_cli(torch, depth_train, argv(
+            "estimate3", cli_prefix, "est_single", False), augment="step")
+    pre_mesh, est_mesh = ranks[0]["cli"]
+    if f"data-parallel over {DP_WORLD} ranks (gloo" not in \
+            pre_mesh["stdout"]:
+        raise AssertionError("cli --mesh-data: no data-parallel line")
+    for r in ranks[1:]:
+        if any(c["stdout"] for c in r["cli"]):
+            raise AssertionError(f"cli --mesh-data: rank {r['rank']} "
+                                 "printed")
+    cli_pre_rel = rel_close(first_metrics(out_dir / "logs" / "pre_mesh"),
+                            first_metrics(out_dir / "logs" / "pre_single"),
+                            STEP_LOSS_RTOL, "cli pretrain first iteration")
+    cli_est_rel = rel_close(first_metrics(out_dir / "logs" / "est_mesh"),
+                            first_metrics(out_dir / "logs" / "est_single"),
+                            STEP_LOSS_RTOL, "cli estimate3 first iteration")
+    pat = r"Mean err: ([0-9.eE+-]+) "
+    e_mesh = stdout_errors(est_mesh["stdout"], pat)
+    e_single = stdout_errors(est0["stdout"], pat)
+    if len(e_mesh) != 1 or len(e_single) != 1:
+        raise AssertionError(f"cli estimate3 evals {e_mesh}, {e_single}")
+    eval_rel = rel_close({"err": e_mesh[0]}, {"err": e_single[0]},
+                         DP_EVAL_RTOL, "cli estimate3 sharded eval")
+    for r in ranks:
+        pre_l, est_l = (c["launches"] for c in r["cli"])
+        if pre_l["in_act_forward"] < pre_fwd * DP_CLI_ITERS or \
+                pre_l["in_act_backward"] < pre_bwd * DP_CLI_ITERS or \
+                est_l["in_act_forward"] != joint * DP_CLI_ITERS or \
+                est_l["in_act_backward"]:
+            raise AssertionError(f"cli rank {r['rank']} launches {pre_l}, "
+                                 f"{est_l}")
+
+    # (d) sharded serving: two replicas on the card
+    with tf32_off(torch):
+        one = PoseEstimator(hyp, serve_sd, device=dev)
+        two = PoseEstimator(hyp, serve_sd, devices=(dev, dev))
+        frames, coms = hand_frames(DP_BATCH, np.random.RandomState(90))
+        cubes = np.full((DP_BATCH, 3), CUBE_MM, np.float32)
+        want = one.predict_frames(frames, coms, cubes)
+        WK.crop_normalize.launches = 0
+        got = two.predict_frames(frames, coms, cubes)
+        torch.cuda.synchronize()
+        serve_launches = WK.crop_normalize.launches
+        del one, two
+    serve_err = float((got - want).abs().max())
+    if serve_launches != DP_WORLD or serve_err > JOINTS_PLAIN_MM or \
+            got.shape != want.shape:
+        raise AssertionError(f"sharded serving: {serve_launches} crop "
+                             f"launches, {serve_err} mm from the single "
+                             "estimator")
+
+    # (e) launches per rank and step
+    per_step = [{k: v / DP_STEPS for k, v in r["launches"].items()}
+                for r in ranks]
+    card = gpu_name_and_power()
+    row = {
+        "shared_card": f"{DP_WORLD} ranks share one card: not a scaling "
+                       "figure",
+        "card": card, "ranks_wall_s": ranks_s,
+        "rank_ms_per_step": [[s["ms"] for s in r["steps"]] for r in ranks],
+        "one_process_ms_per_step": [s["ms"] for s in ref],
+        "nccl_rank_ms_per_step": [s["ms"] for s in nccl],
+        "rank_peak_gib": [r["peak_gib"] for r in ranks],
+        "allreduce_ms_per_step": [r["allreduce_ms"] for r in ranks],
+        "allreduce_mb_per_step": ranks[0]["allreduce_mb"],
+        "loss_rel_vs_one_process_by_step": by_step,
+        "nccl_loss_rel_by_step": nccl_by_step,
+        "cli_pretrain_first_rel": cli_pre_rel,
+        "cli_estimate3_first_rel": cli_est_rel,
+        "cli_eval_mm": {"mesh": e_mesh[0], "single": e_single[0],
+                        "rel": eval_rel},
+        "cli_rank_wall_s": [[c["wall_s"] for c in r["cli"]] for r in ranks],
+        "cli_single_wall_s": [pre0["wall_s"], est0["wall_s"]],
+        "serve_two_replicas_mm": serve_err,
+        "launches_per_rank_step": per_step,
+    }
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"data-parallel ({card}; {DP_WORLD} ranks SHARE ONE CARD, not a "
+        f"scaling figure): ranks vs one process at global batch {DP_BATCH}"
+        f" losses <= {worst:.3g} relative (tol {STEP_LOSS_RTOL}), "
+        f"parameters bit-equal across ranks after each of {DP_STEPS} "
+        f"steps; NCCL 1 rank <= {nccl_worst:.3g}; cli first iteration "
+        f"{cli_pre_rel:.3g} / {cli_est_rel:.3g}, sharded eval "
+        f"{e_mesh[0]:.4f} vs {e_single[0]:.4f} mm; two serving replicas "
+        f"{serve_err:.3g} mm, {serve_launches} crop launches; IN + "
+        f"LeakyReLU per rank and step {per_step}; ms per step by rank "
+        f"{row['rank_ms_per_step']} (one process {row['one_process_ms_per_step']}"
+        f"), peak GiB {row['rank_peak_gib']}, all-reduce ms per step "
+        f"{row['allreduce_ms_per_step']} over {row['allreduce_mb_per_step']:.1f}"
+        f" MB; phase {row['phase_s']:.1f} s")
+    launches = {
+        f"dp trainer rank {r['rank']} of {DP_WORLD} ({DP_STEPS} "
+        f"pretrain_update_raw)": r["launches"] for r in ranks}
+    launches[f"dp NCCL 1 rank ({DP_NCCL_STEPS} pretrain_update_raw)"] = \
+        nccl_launches
+    for r in ranks:
+        for name, c in zip(("pretrain", "estimate3"), r["cli"]):
+            launches[f"dp cli {name} --mesh-data {DP_WORLD} rank "
+                     f"{r['rank']} ({DP_CLI_ITERS} iterations)"] = \
+                c["launches"]
+    return row, launches, serve_launches
+
+
 def gpu_name_and_power():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3122,13 +3614,22 @@ def main() -> int:
                           / "nnyu.yaml")).hyperparameters
     kernels = {"crop_normalize": crop_normalize}
 
+    # host seconds by phase: the script's time limit is shared by all
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     phase_build()
+    mark("build")
     warp_rows, warp_err = phase_warp(torch, dev, cam)
     warp_err = max(warp_err, phase_warp_random(torch, dev, cam))
+    mark("warp")
     sd = seeded_state_dict(hyp, seed=0)
     launches, loaded_launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
     com_gap = phase_com(torch, dev, cam)
     timing = phase_timing(torch, dev, hyp, sd)
+    mark("serve, com, serve timing")
     norm_errs = phase_norm(torch, dev)
     log("norm max |kernel - plain|: float32 "
         f"{norm_errs[torch.float32]}, bfloat16 {norm_errs[torch.bfloat16]}")
@@ -3142,12 +3643,16 @@ def main() -> int:
     remat_launches, remat_checks = phase_remat(torch, dev, hyp, train_sd)
     scan_launches, scan_checks = phase_scan_ckpt(torch, dev, hyp, train_sd,
                                                  raw_launches)
+    mark("norm, train, augment, raw, bf16, remat, scan")
     norm_rows = phase_norm_timing(torch, dev)
     train_rows = phase_train_timing(torch, dev, hyp, trainer)
     del trainer
     raw_rows = phase_raw_timing(torch, dev, hyp, train_sd)
+    mark("norm, train and raw timing")
     cli_rows, cli_tmp, cli_cfg, cli_prefix = phase_cli(torch, dev, raw_rows)
+    mark("cli")
     real_rows, real_launches = phase_realdata(torch, dev, raw_rows)
+    mark("realdata")
     est, daemon_row = phase_daemon(torch, dev, cli_cfg, cli_prefix,
                                    cli_tmp)
     export_launches, export_rows = phase_export(
@@ -3155,6 +3660,10 @@ def main() -> int:
     del est
     walk_launches, walk_row = phase_walk(torch, dev, cli_cfg, cli_prefix,
                                          cli_tmp)
+    mark("daemon, export, walk")
+    dp_row, dp_launches, dp_crop_launches = phase_dp(
+        torch, dev, hyp, train_sd, sd, cli_cfg, cli_prefix, cli_tmp)
+    mark("data parallel")
     shutil.rmtree(cli_tmp)
     path_launches = {"pretrain_update_raw": raw_launches,
                      "pretrain_update bfloat16": bf16_launches,
@@ -3165,6 +3674,7 @@ def main() -> int:
             r["launches"]
     path_launches[f"cli latent_walk --steps {WALK_STEPS}"] = walk_launches
     path_launches.update(real_launches)
+    path_launches.update(dp_launches)
 
     log("warp timing " + json.dumps(warp_rows))
     log("serve timing " + json.dumps(timing))
@@ -3180,6 +3690,7 @@ def main() -> int:
         {"com_sweep_worst_z_ulps": com_gap, "daemon": daemon_row,
          "export": export_rows, "latent_walk": walk_row,
          "card": gpu_name_and_power()}))
+    log("data-parallel phase " + json.dumps(dp_row))
     log("training path checks " + json.dumps(
         {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
          "scan_ckpt": scan_checks, "launches_by_path": path_launches,
@@ -3205,6 +3716,8 @@ def main() -> int:
         "launches": launches["crop_normalize"],
         "max_abs_err": warp_err, **{k: main_row[k] for k in keys},
         "library_ms": None,
+        # this slice's path: one launch per replica of a sharded call
+        "launches_data_parallel": dp_crop_launches,
         "at": "batch 32 float32 frames, 128x128 crops",
         "ms_by_batch": {b: warp_row("crop_normalize", b)["ms"]
                         for b in WARP_BATCHES},
@@ -3223,7 +3736,9 @@ def main() -> int:
             **{f"exported {k} program": v
                for k, v in export_launches.items()
                if k != "artifact daemon"},
-            "artifact daemon": export_launches["artifact daemon"]},
+            "artifact daemon": export_launches["artifact daemon"],
+            f"sharded serving, {DP_WORLD} replicas on the card (1 call)":
+                dp_crop_launches},
         # ms per call of the exported programs beside the live call
         "exported_ms_per_call": {
             k: {"ms": r["ms_per_call"], "live_ms": r["live_ms_per_call"],
@@ -3248,6 +3763,10 @@ def main() -> int:
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "timed_by": r["timed_by"],
+            # this slice's path: rank 0 of the two-rank trainer run
+            "launches_data_parallel": dp_launches[
+                f"dp trainer rank 0 of {DP_WORLD} ({DP_STEPS} "
+                "pretrain_update_raw)"][name],
             "at": f"{tuple(r['shape'])} float32 (the batch-"
                   f"{hyp['batch_size']} training path)",
             # launches on this slice's paths, each read around its own
@@ -3260,6 +3779,8 @@ def main() -> int:
                 and r["dtype"] == "bfloat16"
                 and r["batch"] == hyp["batch_size"]),
         })
+    log("phase seconds " + json.dumps(
+        {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}))
     log(json.dumps({"kernels": rows}))
     log(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {
@@ -3269,4 +3790,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-cards"]:
+        import torch
+
+        torch.cuda.set_device(0)
+        sys.exit(phase_dp_cards(torch, torch.device("cuda:0")))
     sys.exit(main())

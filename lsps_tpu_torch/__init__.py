@@ -1,7 +1,8 @@
 """LSPS in PyTorch and CUDA for an NVIDIA H100: depth -> pose serving (in
 process, the HTTP daemon ``serve/server.py``, ``torch.export`` artifacts),
 the latent walk, the VAE-GAN training updates and the training CLIs
-(``cli/pose_train.py``, ``cli/depth_train.py``).
+(``cli/pose_train.py``, ``cli/depth_train.py``), on one device or on
+data-parallel ranks over ``torch.distributed`` (``parallel/``).
 
 A second implementation of ``lsps_tpu`` (the JAX reference) that imports
 neither JAX nor ``lsps_tpu``.  Public functions keep the reference's

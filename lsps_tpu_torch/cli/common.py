@@ -17,8 +17,13 @@ Differences from the JAX package's CLIs:
   in ``pose_train`` and ``seed + 13`` in ``depth_train``, as the JAX
   CLIs seed their keys.  A scan chunk of K steps draws what K single
   steps draw.
-* ``--mesh-data`` other than 0 raises: data parallelism is the DDP item
-  of ``ROADMAP.md`` (queue 1 #5).
+* ``--mesh-data N`` runs one process per rank, as ``python -m
+  torch.distributed.run --nproc-per-node N`` starts them (``MeshRunner``;
+  the ranks' gradients all-reduce over NCCL or gloo, ``parallel/``).  The
+  batch size is the global batch, split evenly over the N ranks, as in the
+  JAX package's single-process mesh (its multi-process mode feeds a batch
+  per host instead).  Every rank runs the same seeded loader and trains on
+  its rows; rank 0 prints and writes the logs, images and snapshots.
 
 ``LSPS_AUGMENT`` selects the training augment as in the JAX package, with
 ``host`` when it is unset (``data/loader.py``).  The datasets of the
@@ -30,8 +35,10 @@ made.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
+import numpy as np
 import torch
 
 from lsps_tpu_torch.config import NetConfig
@@ -43,8 +50,8 @@ from lsps_tpu_torch.utils.skeleton import tables_for
 # import for the trainer's registration
 import lsps_tpu_torch.train.trainer  # noqa: F401
 
-MESH_ITEM = ("data-parallel training is not ported yet (ROADMAP.md, queue "
-             "1 #5: torch.distributed DDP); use --mesh-data 0")
+LAUNCH = ("python -m torch.distributed.run --nproc-per-node {n} -m "
+          "lsps_tpu_torch.cli.{cli} ... --mesh-data {n}")
 
 
 def _positive_int(value: str) -> int:
@@ -91,8 +98,17 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "losses stay f32); same as hyperparameters."
                         "compute_dtype: bfloat16")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="data-parallel mesh size; only 0 (one device) is "
-                        "ported")
+                   help="data-parallel ranks: 0 = one process on one "
+                        "device (default), N >= 2 = this process is one of "
+                        "N ranks started by 'python -m "
+                        "torch.distributed.run --nproc-per-node N -m "
+                        "lsps_tpu_torch.cli.<cli> ... --mesh-data N', -1 = "
+                        "all the launched ranks.  The batch size is the "
+                        "global batch, split evenly over the ranks; rank r "
+                        "trains on cuda:(LOCAL_RANK %% device_count) "
+                        "(--device cpu: CPU ranks), and the gradients "
+                        "all-reduce (NCCL with a card per rank, else "
+                        "gloo)")
     p.add_argument("--steps-per-call", type=int, default=0,
                    help="train K steps per trainer call (the trainer's "
                         "*_scan: a Python loop over K pre-staged batches, "
@@ -118,11 +134,6 @@ def device_of(opts) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")
     return torch.device("cuda", int(opts.device))
-
-
-def check_mesh(opts) -> None:
-    if getattr(opts, "mesh_data", 0) != 0:
-        raise ValueError(f"--mesh-data {opts.mesh_data}: {MESH_ITEM}")
 
 
 def select_eval(config_path: str):
@@ -164,16 +175,141 @@ def resolve_steps_per_call(opts, auto: int) -> int:
 
 
 def make_trainer(config, sch_interval: int, device, init_seed: int,
-                 seed: int):
+                 seed: int, mesh=None):
     """The config's trainer on ``device``, from fresh weights drawn with
     ``init_seed``; its draws come from a generator seeded with
-    ``seed``."""
+    ``seed``.  ``mesh``: this rank's ``parallel.DataMesh``, or None."""
     from lsps_tpu_torch.train.trainer import fresh_state_dict
 
     hyp = config.hyperparameters
     cls = lookup("trainer", hyp.get("trainer", "LSPSTrainer"))
     return cls(hyp, fresh_state_dict(hyp, init_seed),
-               sch_interval=sch_interval, device=device, seed=seed)
+               sch_interval=sch_interval, device=device, seed=seed,
+               mesh=mesh)
+
+
+class MeshRunner:
+    """Data-parallel context of the training CLIs (``--mesh-data N``).
+
+    The JAX package's ``MeshRunner`` lays one global batch over a device
+    mesh in one process; here this process is one of N ranks, each started
+    by ``torch.distributed.run``, with a process group made from the
+    launcher's environment (``parallel.multihost.initialize``) and a
+    ``parallel.DataMesh`` on ``cuda:(LOCAL_RANK % device_count)``, or on
+    the CPU for CPU ranks.  The trainer takes the global batch and trains
+    on the rank's rows; ``place`` / ``place_padded`` give the rank's rows
+    of host arrays (the sharded eval).  ``mesh`` is an existing
+    ``DataMesh`` (a caller that made its own group); ``close`` ends the
+    group if this runner made it.
+    """
+
+    def __init__(self, n_data: int, on_cuda: bool, cli: str = "depth_train",
+                 mesh=None):
+        import torch.distributed as dist
+
+        from lsps_tpu_torch.parallel import DataMesh, multihost
+
+        world = os.environ.get("WORLD_SIZE")
+        if n_data == -1 and world:
+            n_data = int(world)
+        if n_data < 2 and n_data != -1:
+            raise ValueError(f"--mesh-data {n_data}: need >= 2 devices "
+                             "(use 0 for the single-device path)")
+        self._owns_group = False
+        if mesh is None:
+            if not world or int(world) != n_data:
+                n = "N" if n_data == -1 else n_data
+                raise ValueError(
+                    f"--mesh-data {n_data} needs {n} ranks, one process "
+                    f"each (WORLD_SIZE is {world or 'unset'}); launch: "
+                    + LAUNCH.format(n=n, cli=cli))
+            # a group the caller made outlives this runner
+            self._owns_group = not dist.is_initialized()
+            ok, reason = multihost.initialize(on_cuda=on_cuda)
+            if not ok:
+                raise RuntimeError(f"--mesh-data {n_data}: the process "
+                                   f"group could not be made ({reason})")
+            mesh = DataMesh.from_group(multihost.rank_device(
+                on_cuda, int(os.environ.get("LOCAL_RANK", "0"))))
+        self.n_data = mesh.world
+        self.mesh = mesh
+
+    def check_batch(self, batch_size: int, what: str = "batch size"):
+        """The global batch must split evenly over the ranks; fail up
+        front with a clear message."""
+        if batch_size % self.n_data != 0:
+            raise ValueError(
+                f"{what} {batch_size} (the global batch) is not divisible "
+                f"by the data-mesh size {self.n_data}")
+
+    def place(self, *arrays):
+        """This rank's rows of host batch arrays."""
+        out = tuple(self.mesh.local_rows(a) for a in arrays)
+        return out if len(out) > 1 else out[0]
+
+    def place_padded(self, *arrays):
+        """Pad the leading axis up to a multiple of the world (by repeating
+        the last row) and take this rank's rows; returns ``(arrays,
+        n_valid)``, for eval batches the world does not divide (the test
+        set's final short batch).  ``DataMesh.gather_rows`` joins the
+        results and trims them to ``n_valid``."""
+        n = int(arrays[0].shape[0])
+        pad = (-n) % self.n_data
+        if pad:
+            arrays = tuple(
+                np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], 0)
+                for a in arrays)
+        out = self.place(*arrays)
+        if len(arrays) == 1:
+            out = (out,)
+        return out, n
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh.is_main
+
+    def describe(self, what: str) -> str:
+        """The CLI's "data-parallel over N ranks" line."""
+        return (f"data-parallel over {self.n_data} ranks ({self.mesh.backend}"
+                f", rank {self.mesh.rank} on {self.mesh.device}; {what})")
+
+    def close(self) -> None:
+        """End the process group this runner made."""
+        import torch.distributed as dist
+
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_group = False
+
+
+def make_mesh_runner(opts, cli: str = "depth_train"):
+    """CLI hook: a MeshRunner when ``--mesh-data`` asks for one, else None
+    (one process on one device)."""
+    n = getattr(opts, "mesh_data", 0)
+    if n == 0:
+        return None
+    return MeshRunner(n, on_cuda=str(opts.device).lower() != "cpu", cli=cli)
+
+
+@contextlib.contextmanager
+def rank_output(runner):
+    """Inside the block only rank 0 (or a run with no mesh) prints: the
+    other ranks' standard output goes to the null device."""
+    if runner is None or runner.is_main:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+class NoMetrics:
+    """The metrics writer of a rank other than 0: it writes nothing."""
+
+    def write(self, step, metrics) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def chunk_len(it, k, cadences, max_iterations):
@@ -200,8 +336,6 @@ def chunk_len(it, k, cadences, max_iterations):
 def host_metrics(mets) -> dict:
     """A scan's stacked metrics (tensors on the trainer's device) as numpy
     arrays, for the display rows of its steps."""
-    import numpy as np
-
     return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
             else np.asarray(v) for k, v in mets.items()}
 
@@ -209,8 +343,6 @@ def host_metrics(mets) -> dict:
 def stack_inputs(items):
     """Stack per-step inputs to a leading K axis (leaf by leaf for the
     raw-mode warp-parameter tuples)."""
-    import numpy as np
-
     if isinstance(items[0], tuple):
         return tuple(np.stack([it[i] for it in items])
                      for i in range(len(items[0])))

@@ -21,6 +21,13 @@ come from the trainer's generator, seeded with the attempt's seed + 13
 (``cli/common.py``).  Images are PNG where the JAX package writes JPEG;
 the video is an uncompressed AVI.
 
+``--mesh-data N`` trains on N ranks, one process each, as ``python -m
+torch.distributed.run --nproc-per-node N -m lsps_tpu_torch.cli.depth_train
+... --mesh-data N`` starts them: the batch size is the global batch, every
+rank trains on its rows, the gradients all-reduce, the test batches are
+padded to a multiple of N and their predictions gathered; rank 0 prints and
+writes.
+
 Usage: ``python -m lsps_tpu_torch.cli.depth_train --config exps/nnyu.yaml
 --mode pretrain``; then ``--mode estimate3 --frac 0.1`` (on CUDA device
 0; ``--device cpu`` for the CPU).
@@ -87,8 +94,18 @@ def main(argv=None):
                         metavar="K",
                         help="length of one generator-only rescue phase")
     opts = parser.parse_args(argv)
-    C.check_mesh(opts)
+    runner = C.make_mesh_runner(opts, "depth_train")
+    try:
+        with C.rank_output(runner):
+            _attempts(opts, runner)
+    finally:
+        if runner is not None:
+            runner.close()
 
+
+def _attempts(opts, runner):
+    """The pretrain attempts (one, or more under the collapse guard's
+    reseed); under a mesh every rank takes each attempt together."""
     attempts = max(0, opts.reseed_on_collapse) + 1
     for attempt in range(attempts):
         # a fresh deterministic seed per attempt (9973 is a prime stride)
@@ -97,7 +114,7 @@ def main(argv=None):
             print(f"collapse guard: restarting pretrain with seed {seed} "
                   f"(attempt {attempt + 1}/{attempts})")
         guard = _run(opts, seed, can_reseed=attempt + 1 < attempts,
-                     is_restart=attempt > 0)
+                     is_restart=attempt > 0, runner=runner)
         if guard is None:
             return
         print(f"collapse guard: pretrain aborted at iteration "
@@ -117,7 +134,8 @@ def _discard_attempt_snapshots(orbax_store, attempt_snaps, attempt_orbax):
     The aborted attempt's weights are a collapsed basin being abandoned;
     leaving them on disk would poison both the in-process reseed (if it
     passed ``--resume 1``) and any later resume of this experiment.
-    Only files written by this attempt are touched."""
+    Only files written by this attempt are touched.  Under a mesh rank 0
+    calls it and the other ranks wait at a barrier."""
     import shutil
 
     nets = ("gen", "dis", "map", "optg", "optd")
@@ -139,7 +157,7 @@ def _discard_attempt_snapshots(orbax_store, attempt_snaps, attempt_orbax):
               f"the aborted attempt")
 
 
-def _run(opts, seed, can_reseed=False, is_restart=False):
+def _run(opts, seed, can_reseed=False, is_restart=False, runner=None):
     """One full training run.  Returns None on completion; in pretrain
     with ``can_reseed`` the run aborts and returns its CollapseGuard as
     soon as the guard detects the discriminator-dominant basin.
@@ -148,10 +166,13 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
     ``--resume 1`` snapshot restore is skipped, and the aborted attempt
     deletes the snapshots it saved.  Each attempt builds its own trainer
     (fresh weights and a fresh generator from its seed), so nothing of an
-    aborted attempt's state reaches the next."""
+    aborted attempt's state reaches the next.  ``runner``: the
+    ``MeshRunner`` of ``--mesh-data``, or None."""
     estimate = "estimate" in opts.mode
     mode_idx = int(opts.mode[-1]) if estimate else -1
-    device = C.device_of(opts)
+    device = C.device_of(opts) if runner is None else runner.mesh.device
+    mesh = None if runner is None else runner.mesh
+    main_rank = runner is None or runner.is_main
 
     Evaluation, color_idx, bones = C.select_eval(opts.config)
     config = C.load_experiment(opts)
@@ -164,11 +185,14 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
     max_iterations = hyp["max_iterations"]
     frac = opts.frac
 
+    if runner is not None:
+        runner.check_batch(batch_size)
     dataset_a, dataset_b, dataset_test = C.make_datasets(config)
     trainer = C.make_trainer(config,
                              sch_interval=opts.sch_interval
                              or (100 if estimate else 1000),
-                             device=device, init_seed=seed, seed=seed + 13)
+                             device=device, init_seed=seed, seed=seed + 13,
+                             mesh=mesh)
     di_b = dataset_b.di
 
     # optional full-state checkpoints (the JAX package's orbax store)
@@ -205,6 +229,9 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
                            est=mode_idx == 5)
         if 0.0 < frac < 1.0:
             dataset_b.set_nmax(frac)
+    if runner is not None:
+        # every rank read the same snapshots: hold them to rank 0's bits
+        trainer.sync_replicas()
 
     loader_a = get_data_loader(dataset_a, batch_size, shuffle=True,
                                seed=seed, device=device)
@@ -213,10 +240,14 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
     test_loader = get_data_loader(dataset_test, test_batch_size,
                                   shuffle=False, device=device)
 
-    writer = MetricsWriter(os.path.join(
-        opts.log, os.path.splitext(os.path.basename(opts.config))[0]))
-    image_dir, snap_dir = prepare_snapshot_and_image_folder(
-        config.snapshot_prefix, iterations, config.image_save_iterations)
+    image_dir = snap_dir = None
+    writer = C.NoMetrics()
+    if main_rank:
+        writer = MetricsWriter(os.path.join(
+            opts.log, os.path.splitext(os.path.basename(opts.config))[0]))
+        image_dir, snap_dir = prepare_snapshot_and_image_folder(
+            config.snapshot_prefix, iterations,
+            config.image_save_iterations)
 
     if min(len(dataset_a), len(dataset_b)) < batch_size:
         raise ValueError(
@@ -240,6 +271,8 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
     if raw_mode:
         print("augmentation fused into the training step "
               "(LSPS_AUGMENT=step)")
+    if runner is not None:
+        print(runner.describe(f"global batch {batch_size * 2} images/step"))
 
     # K steps per pretrain_scan / post_scan call (a Python loop over the
     # single steps); near a cadence boundary that K does not divide the
@@ -272,7 +305,7 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
     start = time.time()
     pending = []
     n_plan = 0
-    with profile_trace(opts.profile_dir):
+    with profile_trace(opts.profile_dir if main_rank else None):
         for ep in range(MAX_EPOCHS):
             for batch_a, batch_b in zip(iter(loader_a), iter(loader_b)):
                 in_a, labels_a = batch_a[0], batch_a[1]
@@ -372,8 +405,9 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
                 for j in range(n_done):
                     # the 10-panel strip, only on the image cadences (in
                     # a scanned chunk these land on its last step only)
-                    if ((iterations + 1) % config.image_display_iterations
-                            == 0
+                    if main_rank and (
+                            (iterations + 1)
+                            % config.image_display_iterations == 0
                             or (iterations + 1)
                             % config.image_save_iterations == 0):
                         assembled = trainer.assemble_outputs(
@@ -419,9 +453,12 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
                             elif can_reseed and in_window:
                                 print(msg)
                                 writer.close()
-                                _discard_attempt_snapshots(
-                                    orbax_store, attempt_snaps,
-                                    attempt_orbax)
+                                if main_rank:
+                                    _discard_attempt_snapshots(
+                                        orbax_store, attempt_snaps,
+                                        attempt_orbax)
+                                if runner is not None:
+                                    runner.mesh.barrier()
                                 return guard
                             elif can_reseed:
                                 done = (iterations + 1) / max_iterations
@@ -434,14 +471,15 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
                                 print(msg + "; continuing (no "
                                       "--reseed-on-collapse budget)")
 
-                    if (iterations + 1) % config.image_display_iterations \
-                            == 0:
+                    if main_rank and (
+                            (iterations + 1)
+                            % config.image_display_iterations == 0):
                         viz.save_image_strip(
                             assembled,
                             os.path.join(image_dir, "gen" + IMAGE_EXT))
 
                     if (iterations + 1) % config.image_save_iterations == 0:
-                        if not estimate:
+                        if not estimate and main_rank:
                             viz.save_image_strip(
                                 assembled,
                                 os.path.join(
@@ -451,11 +489,11 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
                                        iterations + 1,
                                        config.image_save_iterations,
                                        image_dir)
-                        else:
+                        elif estimate:
                             err, acc = evaluate_estimation(
                                 trainer, test_loader, di_b, Evaluation,
                                 color_idx, bones, image_dir, mode_idx,
-                                "nyu" in opts.config)
+                                "nyu" in opts.config, runner)
                             best_err = min(best_err, err)
                             best_acc = max(best_acc, acc)
                             err_history.append((iterations + 1, err))
@@ -486,13 +524,20 @@ def _run(opts, seed, can_reseed=False, is_restart=False):
 
 
 def evaluate_estimation(trainer, test_loader, di_b, Evaluation, color_idx,
-                        bones, image_dir, mode_idx, nyu_protocol):
+                        bones, image_dir, mode_idx, nyu_protocol,
+                        runner=None):
     """Test-set eval (depth_train.py:185-253): regress the posterior
     (``regress_a`` in mode 0, ``regress_b`` otherwise), decode the pose,
-    mm metrics, and the video and grid artifacts."""
+    mm metrics, and the video and grid artifacts.  Under a mesh
+    (``runner``) each test batch is padded to a multiple of the world,
+    every rank regresses and decodes its rows, the predictions are
+    gathered and trimmed on every rank, and rank 0 writes the
+    artifacts."""
+    main_rank = runner is None or runner.is_main
     gt3d, joints = [], []
     img2sav = None
-    vid = viz.EvalVideoWriter(os.path.join(image_dir, "gen.avi"))
+    vid = (viz.EvalVideoWriter(os.path.join(image_dir, "gen.avi"))
+           if main_rank else None)
     regress = trainer.dis.regress_a if mode_idx == 0 \
         else trainer.dis.regress_b
     dtype = next(trainer.dis.parameters()).dtype
@@ -500,16 +545,21 @@ def evaluate_estimation(trainer, test_loader, di_b, Evaluation, color_idx,
     for tit, batch in enumerate(iter(test_loader)):
         imgs, labels, com, trans, cube = batch[:5]
         x = np.transpose(imgs, (0, 2, 3, 1))
+        if runner is not None:
+            (x,), n_valid = runner.place_padded(x)
         with torch.no_grad():
             _, post, _ = regress(torch.as_tensor(x).to(trainer.device,
                                                        dtype))
-            pred = trainer.vae.decode(post).float().cpu().numpy()
+            pred = trainer.vae.decode(post)
+            if runner is not None:
+                pred = runner.mesh.gather_rows(pred, n_valid)
+            pred = pred.float().cpu().numpy()
 
         n = labels.shape[0]
         gt_pose = labels.reshape(n, -1, 3)
         pr_pose = pred.reshape(n, -1, 3)
 
-        if tit < 20:
+        if tit < 20 and main_rank:
             for i in range(0, n, 4):
                 real = viz.vis_pair(di_b.camera, imgs[i],
                                     gt_pose[i].reshape(-1), trans[i],
@@ -533,7 +583,8 @@ def evaluate_estimation(trainer, test_loader, di_b, Evaluation, color_idx,
     if img2sav is not None:
         viz.write_png(os.path.join(image_dir, "_test" + IMAGE_EXT),
                       img2sav.astype("uint8"))
-    vid.release()
+    if vid is not None:
+        vid.release()
 
     hpe = Evaluation(np.array(gt3d), np.array(joints))
     mean_err = hpe.getMeanError()

@@ -6,7 +6,10 @@ a fraction of domain B (real), with a periodic reconstruction-error eval,
 a skeleton image and fraction-keyed VAE snapshots, at the same cadences.
 ``--steps-per-call`` K (auto: 8) runs K steps per ``trainer.vae_scan``
 call.  The draws come from the trainer's generator, seeded with
-``--seed`` + 7 (``cli/common.py``).
+``--seed`` + 7 (``cli/common.py``).  ``--mesh-data N`` trains on N ranks
+started by ``python -m torch.distributed.run --nproc-per-node N``: the VAE
+batch (``concat(labels_a, labels_b)`` when ``--frac`` > 0) is one global
+batch split evenly over the ranks; rank 0 prints, evaluates and writes.
 
 Usage: ``python -m lsps_tpu_torch.cli.pose_train --config exps/nnyu.yaml
 --frac 0.1 --log ./logs`` (on CUDA device 0; ``--device cpu`` for the
@@ -36,8 +39,20 @@ POSE_MAX_ITERATIONS = 200000  # pose_train.py:82
 def main(argv=None):
     parser = C.base_parser("LSPS pose VAE training (PyTorch/CUDA)")
     opts = parser.parse_args(argv)
-    C.check_mesh(opts)
-    device = C.device_of(opts)
+    runner = C.make_mesh_runner(opts, "pose_train")
+    try:
+        with C.rank_output(runner):
+            _train(opts, runner)
+    finally:
+        if runner is not None:
+            runner.close()
+
+
+def _train(opts, runner):
+    """The training loop; ``runner`` is the ``MeshRunner`` of
+    ``--mesh-data``, or None."""
+    device = C.device_of(opts) if runner is None else runner.mesh.device
+    main_rank = runner is None or runner.is_main
 
     Evaluation, color_idx, bones = C.select_eval(opts.config)
     config = C.load_experiment(opts)
@@ -46,11 +61,18 @@ def main(argv=None):
     batch_size = opts.batch_size or hyp["batch_size_pose"]
     max_iterations = (opts.max_iterations or POSE_MAX_ITERATIONS)
     frac = opts.frac
+    if runner is not None:
+        # the VAE batch is concat(labels_a, labels_b) when frac > 0
+        # (pose_train.py:125-130): that is the batch the ranks split
+        runner.check_batch(
+            2 * batch_size if frac > 0.0 else batch_size,
+            what="vae batch size" if frac > 0.0 else "batch size")
 
     dataset_a, dataset_b, dataset_test = C.make_datasets(config)
     trainer = C.make_trainer(config, sch_interval=opts.sch_interval or 1000,
                              device=device, init_seed=opts.seed,
-                             seed=opts.seed + 7)
+                             seed=opts.seed + 7,
+                             mesh=None if runner is None else runner.mesh)
     iterations = 0
 
     dataset_a.pose_only = True
@@ -69,10 +91,14 @@ def main(argv=None):
     test_loader = get_data_loader(dataset_test, 64, shuffle=True,
                                   seed=opts.seed + 2, device=device)
 
-    writer = MetricsWriter(os.path.join(
-        opts.log, os.path.splitext(os.path.basename(opts.config))[0]))
-    image_dir, snap_dir = prepare_snapshot_and_image_folder(
-        config.snapshot_prefix, iterations, config.image_save_iterations)
+    image_dir = None
+    writer = C.NoMetrics()
+    if main_rank:
+        writer = MetricsWriter(os.path.join(
+            opts.log, os.path.splitext(os.path.basename(opts.config))[0]))
+        image_dir, _ = prepare_snapshot_and_image_folder(
+            config.snapshot_prefix, iterations,
+            config.image_save_iterations)
 
     if min(len(dataset_a), len(dataset_b)) < batch_size:
         raise ValueError(
@@ -86,11 +112,13 @@ def main(argv=None):
     state_cadences = (10 * config.image_save_iterations,
                       4 * config.snapshot_save_iterations)
 
+    if runner is not None:
+        print(runner.describe("the VAE batch split over the ranks"))
     print(f"using {frac:.2f} percent of the labeled real data")
     start = time.time()
     pending = []
     n_plan = 0
-    with profile_trace(opts.profile_dir):
+    with profile_trace(opts.profile_dir if main_rank else None):
         for ep in range(MAX_EPOCHS):
             for labels_a, labels_b in zip(iter(loader_a), iter(loader_b)):
                 if (labels_a.shape[0] != batch_size
@@ -133,9 +161,8 @@ def main(argv=None):
                                    writer, time.time() - start)
                         start = time.time()
 
-                    if (iterations + 1) % (10
-                                           * config.image_save_iterations) \
-                            == 0:
+                    if main_rank and (iterations + 1) % (
+                            10 * config.image_save_iterations) == 0:
                         _evaluate(trainer, test_loader, di_b, Evaluation,
                                   color_idx, bones, image_dir)
 

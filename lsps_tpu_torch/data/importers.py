@@ -148,11 +148,15 @@ class DepthImporter:
             # checks the round trip), float32 under LSPS_CACHE_F32
             enc = (None if os.environ.get("LSPS_CACHE_F32")
                    else encode_dpt_u16(arrays.dpt))
+        # written aside and renamed into place: the ranks of a
+        # data-parallel run import the same sequence at once
+        tmp = f"{path}.{os.getpid()}.partial.npz"
         if enc is not None:
-            np.savez_compressed(path, dpt_u16=enc[0], dpt_vstar=enc[1],
+            np.savez_compressed(tmp, dpt_u16=enc[0], dpt_vstar=enc[1],
                                 **common)
         else:
-            np.savez_compressed(path, dpt=arrays.dpt, **common)
+            np.savez_compressed(tmp, dpt=arrays.dpt, **common)
+        os.replace(tmp, path)
 
     def _crop_frame(self, dpt, gtorig, gt3Dorig, cube, docom, fname):
         """Shared per-frame crop step (reference importers.py:391-411)."""

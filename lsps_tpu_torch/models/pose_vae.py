@@ -52,8 +52,7 @@ class PoseVAE(nn.Module):
         if noise is None and generator is None:
             return mu, mu, sd
         if noise is None:
-            noise = torch.randn(mu.shape, generator=generator,
-                                dtype=mu.dtype, device=mu.device)
+            noise = L.draw_normal(mu.shape, generator, mu.dtype, mu.device)
         return mu + sd * (NOISE_STD * noise), mu, sd
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -169,6 +169,23 @@ class FusedINLeakyReLU(nn.Module):
         return norm_act.fused_instance_norm_leaky_relu(x)
 
 
+def draw_normal(shape, generator, dtype, device) -> torch.Tensor:
+    """N(0, 1) draws of ``shape`` from ``generator``: a ``torch.Generator``,
+    or a rank's draw source (``parallel.mesh.RowDraws``), which draws at
+    the global shape and returns the rank's rows."""
+    if isinstance(generator, torch.Generator):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    return generator.normal(shape, dtype, device)
+
+
+def draw_uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from ``generator``, as ``draw_normal``."""
+    if isinstance(generator, torch.Generator):
+        return torch.rand(shape, generator=generator, device=device)
+    return generator.uniform(shape, device)
+
+
 class GaussianNoise(nn.Module):
     """Additive N(0, 1) noise, active only in training.  ``noise`` is an
     injected draw of x's shape, taken in x's dtype (the JAX package draws
@@ -182,8 +199,7 @@ class GaussianNoise(nn.Module):
             if generator is None:
                 raise ValueError("GaussianNoise needs noise or a generator "
                                  "in training")
-            noise = torch.randn(x.shape, generator=generator,
-                                dtype=x.dtype, device=x.device)
+            noise = draw_normal(x.shape, generator, x.dtype, x.device)
         return x + noise.to(x.dtype)
 
 
@@ -203,8 +219,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("Dropout needs a generator in training")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+        mask = draw_uniform(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -19,8 +19,9 @@ Deviations from the JAX package:
 * ``--platforms`` has no counterpart: the program runs on the device it
   was exported on, and ``load_pose_program(path, device=)`` moves it to
   another one explicitly;
-* the JAX package refuses a mesh-sharded estimator; the port's estimator
-  has no mesh yet, so there is nothing to refuse.
+* a multi-device estimator (``PoseEstimator(devices=...)``, the
+  counterpart of the JAX package's mesh-sharded one) is refused, for the
+  JAX package's reason.
 """
 
 from __future__ import annotations
@@ -53,6 +54,12 @@ def export_pose_program(est, batch: Optional[int] = 1,
     if frame_dtype not in FRAME_DTYPES.values():
         raise TypeError(f"frame_dtype must be float32 or uint16, not "
                         f"{frame_dtype}")
+    if len(getattr(est, "devices", ())) > 1:
+        raise ValueError(
+            "export a mesh-free PoseEstimator: a multi-device (sharded) "
+            "estimator would bake multi-device placement into the "
+            "artifact, which then cannot load on a single-device serving "
+            "host")
     n = 2 if batch is None else int(batch)
     h, w = frame_shape
     dev = est.device

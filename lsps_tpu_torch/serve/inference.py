@@ -13,12 +13,17 @@ and camera, which ``torch.export`` traces (``serve/export.py``):
 ``(frames, cubes) -> (joints, coms)`` with the CoM detected on the device.
 ``PoseEstimator.predict_frames`` and ``predict_raw`` call the same
 modules, so that live and exported serving compute one function.
+
+``PoseEstimator(devices=(...))`` is the counterpart of the JAX package's
+``mesh=``: one replica of the nets per device, each call's batch split into
+contiguous blocks, one per replica, and the results concatenated on the
+first device.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +83,13 @@ class RawProgram(nn.Module):
         return self.frames_program(frames, coms, cubes), coms
 
 
+class Replica(NamedTuple):
+    """One device's copy of the nets, as its two serving programs."""
+    device: torch.device
+    frames: FramesProgram
+    raw: RawProgram
+
+
 class PoseEstimator:
     """Raw depth frames (or normalized crops) -> metric 3D joints.
 
@@ -88,24 +100,38 @@ class PoseEstimator:
     the pose decode stays float32.  ``device`` defaults to ``cuda`` and
     construction raises when there is none (pass ``device="cpu"`` for the
     plain path).
+
+    ``devices`` (instead of ``device``), two or more: one replica per
+    device (a device may repeat); every call splits its batch into
+    contiguous blocks, one per replica, which must divide it evenly, and
+    returns the results concatenated on the first device.  ``device``,
+    ``dis``, ``vae`` and the two programs are the first replica's.
     """
 
     def __init__(self, hyp: dict, state_dict: Mapping[str, torch.Tensor],
                  camera: Optional[Camera] = None, domain: str = "b",
-                 dtype: torch.dtype = torch.float32, device=None):
-        self.device = resolve_device(device)
-        nets = nn.ModuleDict({"dis": build_model(hyp["dis"]),
-                              "vae": build_model(hyp["vae"])})
-        nets.load_state_dict(state_dict, strict=True)
-        nets.eval().to(self.device)
-        nets["dis"].to(dtype)
-        self.dis, self.vae = nets["dis"], nets["vae"]
+                 dtype: torch.dtype = torch.float32, device=None,
+                 devices: Optional[Sequence] = None):
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = (tuple(torch.device(d) for d in devices) if devices
+                        else (resolve_device(device),))
+        self.device = self.devices[0]
         self.camera = camera or Camera.nyu()
         self.domain = domain
         self.dtype = dtype
-        self.frames_program = FramesProgram(self.dis, self.vae, self.camera,
-                                            domain, dtype)
-        self.raw_program = RawProgram(self.frames_program)
+        self.replicas = []
+        for dev in self.devices:
+            nets = nn.ModuleDict({"dis": build_model(hyp["dis"]),
+                                  "vae": build_model(hyp["vae"])})
+            nets.load_state_dict(state_dict, strict=True)
+            nets.eval().to(dev)
+            nets["dis"].to(dtype)
+            fp = FramesProgram(nets["dis"], nets["vae"], self.camera,
+                               domain, dtype)
+            self.replicas.append(Replica(dev, fp, RawProgram(fp)))
+        _, self.frames_program, self.raw_program = self.replicas[0]
+        self.dis, self.vae = self.frames_program.dis, self.frames_program.vae
 
     @property
     def n_joints(self) -> int:
@@ -123,18 +149,44 @@ class PoseEstimator:
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _check_batch(self, n: int):
+        """A multi-device estimator needs batch % devices == 0; fail with
+        a clear message rather than in a split."""
+        nd = len(self.replicas)
+        if nd > 1 and n % nd != 0:
+            raise ValueError(
+                f"batch {n} not divisible by the mesh data axis ({nd}); "
+                "pad the batch or use an unsharded PoseEstimator for small "
+                "requests")
+
+    def _sharded(self, call, *xs):
+        """``call(replica, *blocks)`` on each replica's contiguous block of
+        the batch ``xs``; the results concatenated on the first device."""
+        self._check_batch(xs[0].shape[0])
+        if len(self.replicas) == 1:
+            return call(self.replicas[0], *xs)
+        blocks = [x.tensor_split(len(self.replicas)) for x in xs]
+        outs = [call(rep, *(b[i].to(rep.device) for b in blocks))
+                for i, rep in enumerate(self.replicas)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                         for k in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def predict_crops(self, crops) -> torch.Tensor:
         """Normalized (B, 128, 128, 1) crops -> (B, J*3) normalized pose."""
-        return self.frames_program.crops_to_pose(self._f32(crops))
+        return self._sharded(lambda r, c: r.frames.crops_to_pose(c),
+                             self._f32(crops))
 
     @torch.inference_mode()
     def predict_frames(self, frames, coms, cubes) -> torch.Tensor:
         """Raw (B, H, W) frames + (B, 3) CoMs + (B, 3) cubes -> (B, J, 3)
         metric joints (mm).  ``frames`` may be uint16 millimetre depth."""
-        return self.frames_program(self._frames(frames), self._f32(coms),
-                                   self._f32(cubes))
+        return self._sharded(lambda r, *a: r.frames(*a),
+                             self._frames(frames), self._f32(coms),
+                             self._f32(cubes))
 
     def predict_frame(self, frame, com, cube) -> torch.Tensor:
         return self.predict_frames(torch.as_tensor(frame)[None],
@@ -152,7 +204,8 @@ class PoseEstimator:
         if cubes is None:
             cubes = torch.full((frames.shape[0], 3), DEFAULT_CUBE_MM,
                                dtype=torch.float32, device=self.device)
-        joints, coms = self.raw_program(frames, self._f32(cubes))
+        joints, coms = self._sharded(lambda r, *a: r.raw(*a), frames,
+                                     self._f32(cubes))
         return (joints, coms) if return_coms else joints
 
 

@@ -307,7 +307,9 @@ class FullStateStore:
     ``save(trainer, step)``, ``latest_step()``, ``restore(trainer)``,
     ``wait()``.  Saves are synchronous (``wait`` has nothing to join) and
     land by renaming a finished directory, so that a save cut short
-    leaves no ``state_*`` entry."""
+    leaves no ``state_*`` entry.  Under a data-parallel trainer
+    (``trainer.mesh``) rank 0 writes and every rank waits for it; every
+    rank restores."""
 
     def __init__(self, directory: str):
         self.directory = os.path.abspath(directory)
@@ -317,6 +319,13 @@ class FullStateStore:
         return os.path.join(self.directory, f"state_{step:08d}")
 
     def save(self, trainer, step: int) -> None:
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is None or mesh.is_main:
+            self._write(trainer, step)
+        if mesh is not None:
+            mesh.barrier()
+
+    def _write(self, trainer, step: int) -> None:
         path = self._path(step)
         tmp = path + ".partial"
         shutil.rmtree(tmp, ignore_errors=True)

@@ -16,6 +16,13 @@ Every random draw can be injected through ``noise``, a dict keyed by call
 site (standard-normal draws in the JAX package's layout: NHWC for the
 generator's shared code, (B, z_dim) for the pose VAE).  A draw that is not
 given comes from the trainer's ``torch.Generator``.
+
+With ``mesh`` (a ``parallel.DataMesh``) the trainer is one rank of a
+data-parallel group, the counterpart of the JAX trainer's ``axis_name``
+under ``pjit``: each update takes the global batch and the global-shaped
+draws, computes on this rank's rows, and averages the gradients over the
+ranks before the optimizer step (``_apply``), so that N ranks take the
+step one process takes on the global batch.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from lsps_tpu_torch import resolve_device
 from lsps_tpu_torch.data import augment
 from lsps_tpu_torch.models import build_model
 from lsps_tpu_torch.ops import layers as L
+from lsps_tpu_torch.parallel.mesh import DataMesh, RowDraws
 from lsps_tpu_torch.registry import register
 from lsps_tpu_torch.train import checkpoint as ckpt
 from lsps_tpu_torch.train import optim
@@ -109,6 +117,13 @@ def _step_slice(x, i: int):
     return x[i]
 
 
+def _head(x, n: int = 4):
+    """The first ``n`` rows of a batch (a raw tuple leaf by leaf)."""
+    if isinstance(x, tuple):
+        return tuple(leaf[:n] for leaf in x)
+    return x[:n]
+
+
 def fresh_state_dict(hyp: Mapping[str, Any], seed: int
                      ) -> Dict[str, torch.Tensor]:
     """Fresh float32 weights of the four nets (``dis.* gen.* vae.*
@@ -150,17 +165,38 @@ class LSPSTrainer:
     restored to the state it had when the pass began, so the recompute
     draws the same noise and dropout masks.
 
-    Not ported: ``axis_name`` (data parallelism).
+    ``mesh`` (a ``parallel.DataMesh``) makes the trainer one rank of a
+    data-parallel group on the mesh's device.  Every update then takes the
+    global batch (a raw tuple leaf by leaf) and global-shaped injected
+    noise, and computes on the rank's contiguous rows: the joint pass's
+    draws for a and b concatenated as two blocks, each sliced on its own;
+    ``post_update``'s feature alignment on the global batch's first four
+    rows on every rank.  Draws that are not injected are made at the global
+    shape from ``generator`` (seeded alike on every rank) and sliced
+    (``parallel.mesh.RowDraws``).  The gradients, cast to the parameters'
+    dtype, are averaged over the ranks in one collective per optimizer
+    step, and so are the step's metrics, so that every rank logs the global
+    losses.  The ranks must start equal: construction copies rank 0's
+    parameters to every rank and raises if any held others
+    (``sync_replicas``).  Snapshots are written by rank 0 and read by every
+    rank after a barrier.
     """
 
     def __init__(self, hyperparameters: Dict[str, Any],
                  state_dict: Mapping[str, torch.Tensor],
-                 sch_interval: int = 1000, device=None, seed: int = 0):
+                 sch_interval: int = 1000, device=None, seed: int = 0,
+                 mesh: Optional[DataMesh] = None):
         hyp = dict(hyperparameters)
         self.hyp = hyp
         self.compute_dtype = _compute_dtype(hyp)
         self.remat = bool(hyp.get("remat", False))
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None \
+                and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.nets = nn.ModuleDict({k: build_model(hyp[k])
                                    for k in ("dis", "gen", "vae", "map")})
         dtype = next(v.dtype for v in state_dict.values()
@@ -191,6 +227,85 @@ class LSPSTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.step = 0
+        self.sync_replicas()
+
+    # ------------------------------------------------------------------
+    # the data-parallel rank (no-ops without a mesh)
+    # ------------------------------------------------------------------
+    def sync_replicas(self) -> None:
+        """Under a mesh: copy rank 0's parameters, optimizer moments and
+        counts and draw generator into every rank, and raise if any rank
+        held others (the ranks must build the trainer from the same seed
+        and read the same snapshots)."""
+        if self.mesh is None:
+            return
+        opts = (self.dis_opt, self.gen_opt, self.vae_opt)
+        counts = torch.tensor([[o.count, o.sched_count] for o in opts],
+                              dtype=torch.float64, device=self.device)
+        gen_state = self.generator.get_state().to(self.device)
+        same = self.mesh.broadcast_params_(
+            [*self.nets.parameters(), *(t for o in opts for t in o.mu),
+             *(t for o in opts for t in o.nu), counts, gen_state])
+        if not same:
+            raise RuntimeError(
+                "the ranks hold different parameters, optimizer states or "
+                "draw generators: every rank must build the trainer from "
+                "the same seed and read the same snapshots")
+
+    def _rows(self, x):
+        """This rank's rows of a global batch (a raw tuple leaf by leaf);
+        the batch itself without a mesh."""
+        if self.mesh is None:
+            return x
+        if isinstance(x, tuple):
+            return tuple(self._rows(v) for v in x)
+        return self.mesh.local_rows(x)
+
+    def _batch(self, *xs):
+        """This rank's rows of the global inputs, on the device."""
+        return tuple(self._to(self._rows(x)) for x in xs)
+
+    def _local_noise(self, noise, rows: int, keep: Sequence[str] = ()):
+        """Injected global-shaped draws (a tensor, or a dict of them) ->
+        this rank's: a draw of k * rows * world rows holds k blocks (the
+        joint pass's a and b), each sliced on its own.  Keys in ``keep``
+        are the same on every rank."""
+        if self.mesh is None or noise is None:
+            return noise
+        if isinstance(noise, torch.Tensor):
+            return self.mesh.local_rows(
+                noise, segments=max(1, noise.shape[0]
+                                    // (rows * self.mesh.world)))
+        return {k: v if k in keep else self._local_noise(v, rows)
+                for k, v in noise.items()}
+
+    def _draws(self, rows: int, generator: Optional[torch.Generator] = None):
+        """The draw source of a pass over ``rows`` local rows: the
+        generator, or under a mesh its global draws sliced to this
+        rank."""
+        g = self.generator if generator is None else generator
+        return g if self.mesh is None else RowDraws(g, self.mesh, rows)
+
+    def _reduced(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """Under a mesh, the step's tensor metrics averaged over the ranks
+        in one collective: every rank logs the global losses, and the
+        collapse guard takes the same decision on each."""
+        if self.mesh is None:
+            return metrics
+        keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+        vec = torch.stack([metrics[k].to(torch.float64) for k in keys])
+        self.mesh.allreduce_mean_([vec])
+        return {**metrics, **{k: vec[i].to(metrics[k].dtype)
+                              for i, k in enumerate(keys)}}
+
+    def _writes(self) -> bool:
+        """Whether this process writes files: rank 0, or no mesh."""
+        return self.mesh is None or self.mesh.is_main
+
+    def barrier(self) -> None:
+        """Under a mesh, wait until every rank is here."""
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ------------------------------------------------------------------
     def _to(self, x) -> torch.Tensor:
@@ -226,21 +341,26 @@ class LSPSTrainer:
                     c.copy_(p)
         return self._cast["gen"], self._cast["dis"], self._cast["map"]
 
-    def _encode_pose(self, labels, noise):
-        """Noisy pose codes of the VAE encoder (no grad)."""
+    def _encode_pose(self, labels, noise, rows: int):
+        """Noisy pose codes of the VAE encoder (no grad); ``rows`` is the
+        rank's batch (``labels`` may hold a's and b's, two blocks)."""
         with torch.no_grad():
             z, _, _ = self.vae.encode(labels, noise=noise,
-                                      generator=self.generator)
+                                      generator=self._draws(rows))
         return z
 
     def _apply(self, opt: optim.AdamMultiStep, loss: torch.Tensor,
                wrt: Sequence[torch.Tensor]) -> None:
         """One step of ``opt`` with the gradients of ``loss`` by ``wrt``
         (the optimizer's parameters or their compute-dtype copies, in
-        its order), cast to the parameters' dtype."""
+        its order), cast to the parameters' dtype and, under a mesh,
+        averaged over the ranks."""
         grads = torch.autograd.grad(loss, list(wrt), allow_unused=True)
-        opt.step([None if g is None else g.to(p.dtype)
-                  for g, p in zip(grads, opt.params)])
+        grads = [None if g is None else g.to(p.dtype)
+                 for g, p in zip(grads, opt.params)]
+        if self.mesh is not None:
+            self.mesh.allreduce_mean_(grads)
+        opt.step(grads)
 
     def _gen_fwd(self, gen, xa, xb, noise):
         """The generator's joint pass, (x_aa, x_ba, x_ab, x_bb, shared).
@@ -248,14 +368,15 @@ class LSPSTrainer:
         it then draws from a copy of ``self.generator`` taken before it,
         which each run restores, and ``self.generator`` moves on to where
         the first run left the copy."""
+        rows = xa.shape[0]
         if not (self.remat and torch.is_grad_enabled()):
-            return gen(xa, xb, noise=noise, generator=self.generator)
+            return gen(xa, xb, noise=noise, generator=self._draws(rows))
         start, ends = self.generator.get_state(), []
 
         def region(xa, xb, noise):
             g = torch.Generator(device=self.device)
             g.set_state(start)
-            out = gen(xa, xb, noise=noise, generator=g)
+            out = gen(xa, xb, noise=noise, generator=self._draws(rows, g))
             ends.append(g.get_state())
             return out
 
@@ -270,17 +391,20 @@ class LSPSTrainer:
         """One pose-VAE step on poses y (B, D); ``noise`` (B, z_dim).
         Returns (metrics, recons)."""
         hyp = self.hyp
-        y = self._to(y)
+        (y,) = self._batch(y)
         lr = self.vae_opt.current_lr()
-        dec, _, mu, sd = self.vae(y, noise=noise, generator=self.generator)
+        dec, _, mu, sd = self.vae(
+            y, noise=self._local_noise(noise, y.shape[0]),
+            generator=self._draws(y.shape[0]))
         enc_loss = kl_loss(mu, sd)
         ll_loss = l1_loss(dec, y)
         total = hyp["kl_loss_vae"] * enc_loss + hyp["ll_loss_vae"] * ll_loss
         self._apply(self.vae_opt, total, self.vae_opt.params)
         self.step += 1
-        return ({"vae_total_loss": total.detach(),
-                 "vae_enc_loss": enc_loss.detach(),
-                 "vae_ll_loss": ll_loss.detach(), "vae_lr": lr},
+        return (self._reduced({"vae_total_loss": total.detach(),
+                               "vae_enc_loss": enc_loss.detach(),
+                               "vae_ll_loss": ll_loss.detach(),
+                               "vae_lr": lr}),
                 dec.detach())
 
     # ------------------------------------------------------------------
@@ -292,11 +416,17 @@ class LSPSTrainer:
         (2B, h, w, C)), ``a2b``, ``b2a`` ((B, h, w, C) each) and, with
         train_map, ``vae`` ((2B, z_dim)).  Returns (metrics, the eight
         output images)."""
+        met, outs = self._gen(*self._batch(images_a, labels_a, images_b,
+                                           labels_b), noise=noise)
+        return self._reduced(met), outs
+
+    def _gen(self, xa, la, xb, lb, noise: NoiseDict = None):
+        """``gen_update`` on this rank's rows (tensors on the device);
+        the metrics are the rank's."""
         hyp = self.hyp
-        noise = noise or {}
-        g = self.generator
+        noise = self._local_noise(noise or {}, xa.shape[0])
+        g = self._draws(xa.shape[0])
         gen, dis, mp = self._compute_nets()
-        xa, xb = self._to(images_a), self._to(images_b)
         lr = self.gen_opt.current_lr()
 
         x_aa, x_ba, x_ab, x_bb, shared = self._gen_fwd(
@@ -307,9 +437,9 @@ class LSPSTrainer:
                                             generator=g)
         zero = xa.new_zeros(())
         if self.train_map:
-            labels = torch.cat([self._to(labels_a), self._to(labels_b)])
-            z_p2d = mp(self._cd(self._encode_pose(labels,
-                                                  noise.get("vae"))))
+            labels = torch.cat([la, lb])
+            z_p2d = mp(self._cd(self._encode_pose(labels, noise.get("vae"),
+                                                  xa.shape[0])))
             dec_a_full, dec_b_full = gen.decode(z_p2d)
             half = dec_a_full.shape[0] // 2
             decode_a, decode_b = dec_a_full[:half], dec_b_full[half:]
@@ -365,20 +495,27 @@ class LSPSTrainer:
         """One dis step against the frozen generator (train mode, noise
         on).  ``noise`` keys: ``gen`` ((2B, h, w, C)) and, with train_map,
         ``vae`` ((2B, z_dim)).  Returns (metrics, None)."""
+        met, _ = self._dis(*self._batch(images_a, labels_a, images_b,
+                                        labels_b), feat_mat, noise)
+        return self._reduced(met), None
+
+    def _dis(self, xa, la, xb, lb, feat_mat: bool = True,
+             noise: NoiseDict = None):
+        """``dis_update`` on this rank's rows; the metrics are the
+        rank's."""
         hyp = self.hyp
-        noise = noise or {}
+        noise = self._local_noise(noise or {}, xa.shape[0])
         gen, dis, mp = self._compute_nets()
-        xa = self._cd(self._to(images_a))
-        xb = self._cd(self._to(images_b))
+        xa, xb = self._cd(xa), self._cd(xb)
         lr = self.dis_opt.current_lr()
 
         with torch.no_grad():
             x_aa, x_ba, x_ab, x_bb, _ = self._gen_fwd(gen, xa, xb,
                                                       noise.get("gen"))
             if self.train_map:
-                labels = torch.cat([self._to(labels_a), self._to(labels_b)])
-                z_p2d = mp(self._cd(self._encode_pose(labels,
-                                                      noise.get("vae"))))
+                labels = torch.cat([la, lb])
+                z_p2d = mp(self._cd(self._encode_pose(
+                    labels, noise.get("vae"), xa.shape[0])))
                 dec_a_full, dec_b_full = gen.decode(z_p2d)
                 half = dec_a_full.shape[0] // 2
                 data_a = torch.cat([xa, x_ba, x_aa, dec_a_full[:half]])
@@ -429,11 +566,17 @@ class LSPSTrainer:
         """``dis_update`` then ``gen_update``; ``noise`` keys ``dis`` and
         ``gen`` hold their noise dicts.  Returns (metrics, the gen
         outputs or None without ``with_viz``)."""
+        met, outs = self._pretrain(*self._batch(images_a, labels_a, images_b,
+                                                labels_b), feat_mat=feat_mat,
+                                   with_viz=with_viz, noise=noise)
+        return self._reduced(met), outs
+
+    def _pretrain(self, xa, la, xb, lb, feat_mat: bool = True,
+                  with_viz: bool = True, noise=None):
         noise = noise or {}
-        dmet, _ = self.dis_update(images_a, labels_a, images_b, labels_b,
-                                  feat_mat=feat_mat, noise=noise.get("dis"))
-        gmet, outs = self.gen_update(images_a, labels_a, images_b, labels_b,
-                                     noise=noise.get("gen"))
+        dmet, _ = self._dis(xa, la, xb, lb, feat_mat=feat_mat,
+                            noise=noise.get("dis"))
+        gmet, outs = self._gen(xa, la, xb, lb, noise=noise.get("gen"))
         return {**dmet, **gmet}, outs if with_viz else None
 
     # ------------------------------------------------------------------
@@ -446,11 +589,26 @@ class LSPSTrainer:
                     noise: NoiseDict = None):
         """One posterior-regression step of the dis.  ``noise`` keys:
         ``gen`` ((8, h, w, C), modes other than 0 and 1), ``vae_a`` and
-        ``vae_b`` ((B, z_dim)).  Returns (metrics, outputs or None)."""
+        ``vae_b`` ((B, z_dim)).  Returns (metrics, outputs or None).
+        Under a mesh the feature alignment runs on the global batch's first
+        four rows on every rank (``gen`` noise unsliced), the regression on
+        the rank's rows."""
+        heads = None
+        if self.mesh is not None and mode not in (0, 1):
+            heads = (self._to(_head(images_a)), self._to(_head(images_b)))
+        met, outs = self._post(*self._batch(images_a, labels_a, images_b,
+                                            labels_b), mode=mode,
+                               with_viz=with_viz, noise=noise, heads=heads)
+        return self._reduced(met), outs
+
+    def _post(self, xa, la, xb, lb, mode: int = 3, with_viz: bool = True,
+              noise: NoiseDict = None, heads=None):
+        """``post_update`` on this rank's rows; ``heads`` are the global
+        batch's first four rows of a and b (None: ``xa[0:4]``,
+        ``xb[0:4]``).  The metrics are the rank's."""
         hyp = self.hyp
-        noise = noise or {}
+        noise = self._local_noise(noise or {}, xa.shape[0], keep=("gen",))
         gen, dis, _ = self._compute_nets()
-        xa, xb = self._to(images_a), self._to(images_b)
         ca, cb = self._cd(xa), self._cd(xb)
         lr = self.dis_opt.current_lr()
         zero = xa.new_zeros(())
@@ -460,25 +618,27 @@ class LSPSTrainer:
 
         def regress(regress_fn, x, labels, key):
             _, pred, _ = regress_fn(x)
-            return l2_loss(pred, self._encode_pose(self._to(labels),
-                                                   noise.get(key)))
+            return l2_loss(pred, self._encode_pose(labels, noise.get(key),
+                                                   x.shape[0]))
 
         if mode == 0:
-            reg_loss_a = regress(dis.regress_a, ca, labels_a, "vae_a")
+            reg_loss_a = regress(dis.regress_a, ca, la, "vae_a")
         elif mode == 1:
-            reg_loss_b = regress(dis.regress_b, cb, labels_b, "vae_b")
+            reg_loss_b = regress(dis.regress_b, cb, lb, "vae_b")
         else:
+            head_a, head_b = heads or (xa[0:4], xb[0:4])
             with torch.no_grad():
+                # the same four global rows and draws on every rank
                 x_aa, x_ba, x_ab, x_bb, _ = gen(
-                    ca[0:4], cb[0:4], noise=noise.get("gen"),
-                    generator=self.generator)
+                    self._cd(head_a), self._cd(head_b),
+                    noise=noise.get("gen"), generator=self.generator)
             f_aa, f_ba, f_ab, f_bb = dis.feats(x_aa, x_ba, x_ab, x_bb)
             feature_loss_a = l1_loss(f_ab - f_aa)
             feature_loss_b = l1_loss(f_ba - f_bb)
             images = (x_aa, x_ba, x_ab, x_bb)
-            reg_loss_a = regress(dis.regress_a, ca, labels_a, "vae_a")
+            reg_loss_a = regress(dis.regress_a, ca, la, "vae_a")
             if mode == 4:
-                reg_loss_b = regress(dis.regress_b, cb, labels_b, "vae_b")
+                reg_loss_b = regress(dis.regress_b, cb, lb, "vae_b")
 
         total = (hyp["reg_w"] * (reg_loss_a + reg_loss_b)
                  + hyp["feature_w_reg"] * (feature_loss_a + feature_loss_b))
@@ -494,7 +654,8 @@ class LSPSTrainer:
     # fused-augment steps: the image half of the augment (warp, sentinels,
     # z-clamp, normalize: data/augment.py) on the trainer's device, then
     # the image step.  The raw tuples are FastAugmenter.raw_batch's, numpy
-    # or tensors; a uint16 src crosses to the device at half width.
+    # or tensors; a uint16 src crosses to the device at half width.  Under
+    # a mesh each rank augments only its rows of the global tuples.
     # ------------------------------------------------------------------
     def _augment(self, raw) -> torch.Tensor:
         """A raw tuple -> (B, H, W, 1) float32 crops on the device."""
@@ -503,18 +664,24 @@ class LSPSTrainer:
 
     def _raw(self, update: Callable, raw_a, labels_a, raw_b, labels_b,
              viz: bool, **kw):
-        images_a, images_b = self._augment(raw_a), self._augment(raw_b)
-        met, outs = update(images_a, labels_a, images_b, labels_b, **kw)
+        """``update`` (a rank-local step) on the augmented rows of the raw
+        tuples; returns the reduced metrics and, with ``viz``, (outputs,
+        the rank's images_a, images_b)."""
+        images_a = self._augment(self._rows(raw_a))
+        images_b = self._augment(self._rows(raw_b))
+        la, lb = self._batch(labels_a, labels_b)
+        met, outs = update(self._to(images_a), la, self._to(images_b), lb,
+                           **kw)
         if not viz:
-            return met, None
-        return met, (outs, images_a, images_b)
+            return self._reduced(met), None
+        return self._reduced(met), (outs, images_a, images_b)
 
     def pretrain_update_raw(self, raw_a, labels_a, raw_b, labels_b,
                             feat_mat: bool = True, with_viz: bool = True,
                             noise=None):
         """``pretrain_update`` on augmented raw batches.  Returns (metrics,
         (gen outputs, images_a, images_b) or None)."""
-        return self._raw(self.pretrain_update, raw_a, labels_a, raw_b,
+        return self._raw(self._pretrain, raw_a, labels_a, raw_b,
                          labels_b, with_viz, feat_mat=feat_mat,
                          with_viz=with_viz, noise=noise)
 
@@ -522,15 +689,20 @@ class LSPSTrainer:
                        with_viz: bool = True, noise: NoiseDict = None):
         """``gen_update`` on augmented raw batches (the collapse rescue's
         generator-only phases)."""
-        return self._raw(self.gen_update, raw_a, labels_a, raw_b, labels_b,
+        return self._raw(self._gen, raw_a, labels_a, raw_b, labels_b,
                          with_viz, noise=noise)
 
     def post_update_raw(self, raw_a, labels_a, raw_b, labels_b,
                         mode: int = 3, with_viz: bool = True,
                         noise: NoiseDict = None):
         """``post_update`` on augmented raw batches."""
-        return self._raw(self.post_update, raw_a, labels_a, raw_b, labels_b,
-                         with_viz, mode=mode, with_viz=with_viz, noise=noise)
+        heads = None
+        if self.mesh is not None and mode not in (0, 1):
+            heads = (self._to(self._augment(_head(raw_a))),
+                     self._to(self._augment(_head(raw_b))))
+        return self._raw(self._post, raw_a, labels_a, raw_b, labels_b,
+                         with_viz, mode=mode, with_viz=with_viz, noise=noise,
+                         heads=heads)
 
     # ------------------------------------------------------------------
     # multi-step variants: K steps per call over inputs stacked on a
@@ -607,12 +779,17 @@ class LSPSTrainer:
     def save(self, snapshot_prefix: str, iterations: int,
              save_opt: bool = True) -> None:
         """gen/dis/map and the gen and dis optimizers, numbered
-        ``iterations + 1``."""
-        ckpt.save(self, snapshot_prefix, iterations, save_opt)
+        ``iterations + 1``.  Under a mesh rank 0 writes and every rank
+        waits for it."""
+        if self._writes():
+            ckpt.save(self, snapshot_prefix, iterations, save_opt)
+        self.barrier()
 
     def save_vae(self, snapshot_prefix: str, iterations: int,
                  frac: float) -> None:
-        ckpt.save_vae(self, snapshot_prefix, iterations, frac)
+        if self._writes():
+            ckpt.save_vae(self, snapshot_prefix, iterations, frac)
+        self.barrier()
 
     def resume(self, snapshot_prefix: str, idx: int = -1,
                load_opt: bool = False, est: bool = False) -> int:

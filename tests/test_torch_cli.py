@@ -568,6 +568,9 @@ def test_cli_device_flag(monkeypatch):
         pcommon.device_of(opts)
     opts.device = "cpu"
     assert pcommon.device_of(opts) == torch.device("cpu")
+    # --mesh-data N outside a launch of N ranks names the launch
     opts.mesh_data = 2
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pcommon.check_mesh(opts)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                       "--nproc-per-node 2"):
+        pcommon.make_mesh_runner(opts)

@@ -52,11 +52,11 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(out["names"]) >= 51
+    assert len(out["names"]) >= 54
     # the training augment, the checkpoints, the CLIs, the loader, the
     # daemon, the export, the latent walk, the checkpoint loader, the PNG
-    # reader, the real-data importers and datasets and the native augment
-    # library's bindings are among the modules held
+    # reader, the real-data importers and datasets, the native augment
+    # library's bindings and data parallelism are among the modules held
     assert {"lsps_tpu_torch.data.png",
             "lsps_tpu_torch.data.importers",
             "lsps_tpu_torch.data.datasets",
@@ -72,7 +72,10 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
             "lsps_tpu_torch.serve.export",
             "lsps_tpu_torch.train.torch_convert",
             "lsps_tpu_torch.cli.export_model",
-            "lsps_tpu_torch.cli.latent_walk"} <= set(out["names"])
+            "lsps_tpu_torch.cli.latent_walk",
+            "lsps_tpu_torch.parallel",
+            "lsps_tpu_torch.parallel.mesh",
+            "lsps_tpu_torch.parallel.multihost"} <= set(out["names"])
     assert out["bad"] == []
     assert out["absent"] == []
 

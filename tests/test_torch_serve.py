@@ -186,3 +186,67 @@ def test_strict_state_dict(pair):
     sd.pop("vae.de_fc2.bias")
     with pytest.raises(RuntimeError, match="de_fc2.bias"):
         PoseEstimator(HYP, sd, camera=PORT_CAM, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: PoseEstimator(devices=...), the counterpart of the JAX
+# package's PoseEstimator(mesh=...)
+# ---------------------------------------------------------------------------
+
+def _state_dict(est):
+    return {**{f"dis.{k}": v for k, v in est.dis.state_dict().items()},
+            **{f"vae.{k}": v for k, v in est.vae.state_dict().items()}}
+
+
+def test_sharded_estimator_matches_single(pair):
+    """Two replicas on the CPU, each regressing its contiguous half of the
+    batch, give the single estimator's joints, crops' poses and CoMs (the
+    same modules on fewer rows: float32 sums of another length, held to
+    FRAMES_MM)."""
+    _, single = pair
+    multi = PoseEstimator(HYP, _state_dict(single), camera=PORT_CAM,
+                          devices=("cpu", "cpu"))
+    assert len(multi.replicas) == 2 and multi.device == torch.device("cpu")
+    assert multi.replicas[0].frames.dis is not multi.replicas[1].frames.dis
+    frames, coms, cubes = _frames(4)
+    got = multi.predict_frames(frames, coms, cubes)
+    assert got.shape == (4, 36, 3)
+    np.testing.assert_allclose(got.numpy(),
+                               single.predict_frames(frames, coms,
+                                                     cubes).numpy(),
+                               rtol=0, atol=FRAMES_MM)
+    joints, got_coms = multi.predict_raw(frames, return_coms=True)
+    want_joints, want_coms = single.predict_raw(frames, return_coms=True)
+    assert torch.equal(got_coms, want_coms)
+    np.testing.assert_allclose(joints.numpy(), want_joints.numpy(), rtol=0,
+                               atol=FRAMES_MM)
+    crops = np.random.RandomState(2).uniform(
+        -1, 1, (4, 128, 128, 1)).astype(np.float32)
+    np.testing.assert_allclose(multi.predict_crops(crops).numpy(),
+                               single.predict_crops(crops).numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_sharded_estimator_indivisible_batch_raises(pair):
+    _, single = pair
+    multi = PoseEstimator(HYP, _state_dict(single), camera=PORT_CAM,
+                          devices=("cpu", "cpu"))
+    frames, coms, cubes = _frames(3)
+    with pytest.raises(ValueError, match="batch 3 not divisible by the mesh "
+                       "data axis"):
+        multi.predict_frames(frames, coms, cubes)
+    with pytest.raises(ValueError, match="not divisible"):
+        multi.predict_frame(frames[0], coms[0], cubes[0])
+    with pytest.raises(ValueError, match="device or devices"):
+        PoseEstimator(HYP, _state_dict(single), camera=PORT_CAM,
+                      device="cpu", devices=("cpu", "cpu"))
+
+
+def test_export_refuses_a_multi_device_estimator(pair):
+    from lsps_tpu_torch.serve.export import export_pose_program
+
+    _, single = pair
+    multi = PoseEstimator(HYP, _state_dict(single), camera=PORT_CAM,
+                          devices=("cpu", "cpu"))
+    with pytest.raises(ValueError, match="mesh-free PoseEstimator"):
+        export_pose_program(multi, batch=2, frame_shape=(48, 64))
