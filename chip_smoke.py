@@ -33,11 +33,26 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    share), beside the same call on the index route (the crop indices in
    PyTorch ops and the loaded-index kernel, as before the index math
    moved into the kernel), in turns;
-5. hold the four InstanceNorm kernels (IN + LeakyReLU and IN + residual,
+5. detect and track a live sequence on the host and estimate it on the card
+   (``exps/nnyu.yaml`` widths, the serve phase's weights): 64 frames of
+   one rendered hand on a smooth CoM path, ``HandDetector.detect`` (hand
+   size on) on every frame, ``refine_com_iterative`` from the previous
+   CoM (5 rounds), a ``utils.realtime.Frame`` per frame, and
+   ``predict_frames`` at batch 1 per frame and once at batch 64: host
+   CoMs within 2 px and 3 mm of the device detector's (``predict_raw``),
+   the joints within 0.05 mm of the CPU's and of batch 1's, one crop
+   launch per call (the counter, and torch.profiler over 10 calls); host
+   ms a frame for each step and the live loop's (track + estimate) beside
+   the 33 ms of a 30 fps camera.  Then MSRA15 (2 subjects x 2 gestures x 8
+   ``.bin`` frames) and POST (8 synthetic and 4 real frames, written by
+   ``png_bytes``) mini-trees imported fresh and from their caches (held
+   equal; frames/s), and MSRA15's raw frames through ``predict_frames``,
+   card against CPU;
+6. hold the four InstanceNorm kernels (IN + LeakyReLU and IN + residual,
    forward and backward) against their plain versions on the card at the
    training path's shapes (32 and 64 x 256 x 32 x 32), a ragged and a
    128 x 128 shape, float32 and bfloat16, slope 0.01 and None;
-6. train at the widths of ``exps/nnyu.yaml`` (seeded random weights,
+7. train at the widths of ``exps/nnyu.yaml`` (seeded random weights,
    seeded crops and poses): ``vae_update`` (batch 64), three
    ``pretrain_update`` (batch 32), ``post_update`` mode 3 and one
    ``pretrain_update`` with the fused IN + residual tail, with every norm
@@ -48,10 +63,10 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    their plain versions within that one block), and one tiny-width step
    on the card against the CPU (TF32 off): losses, each gradient before
    the optimizer, and the updated parameters;
-7. hold the training augment (``data/augment.py``) on the card against
+8. hold the training augment (``data/augment.py``) on the card against
    the same function on the CPU, bit for bit, at batch 32 with rotations,
    float32 and uint16 sources, and time it;
-8. drive this slice's training paths at the widths of ``exps/nnyu.yaml``
+9. drive this slice's training paths at the widths of ``exps/nnyu.yaml``
    (batch 32), each with the norm kernels' launch counts set to 0 just
    before and read just after: ``pretrain_update_raw`` against the
    augment + ``pretrain_update`` from the same state and noise (losses
@@ -64,13 +79,13 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    counts); ``pretrain_scan(raw=True)`` at K=4 against 4 single raw steps
    (cuDNN deterministic); then save, resume a fresh trainer, and hold the
    next step of both;
-9. time each norm kernel beside its bound, its plain version and
+10. time each norm kernel beside its bound, its plain version and
    ``F.instance_norm``; ``pretrain_update`` (batch 8 and 32) and
    ``vae_update``: ms per step, device time, idle share, top kernels,
    peak memory; ``pretrain_update_raw`` beside ``pretrain_update`` at
    batch 8 and 32 in float32 and bfloat16, and ``vae_scan`` K=8 beside 8
    ``vae_update`` calls at batch 64;
-10. drive the training CLIs in process through their ``main(argv)``, at
+11. drive the training CLIs in process through their ``main(argv)``, at
     the nnyu widths of ``exps/synth_full.yaml`` cut as ``CLI_CUTS`` says
     (frames per dataset and cadences), with the norm kernels' launch
     counts set to 0 just before each run and read just after:
@@ -84,8 +99,8 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     ``exps/synth.yaml`` for 2001 iterations, whose last eval must be at
     most a third of its first and at most 4.4 mm.  Each run prints its
     dataset seconds, ms per iteration over the loop beside the bare
-    step's from phase 9, launches per iteration and eval errors;
-11. the real-data path at the widths and batch sizes of
+    step's from phase 10, launches per iteration and eval errors;
+12. the real-data path at the widths and batch sizes of
     ``exps/nnyu.yaml`` and ``exps/nicvl.yaml``: NYU and ICVL
     mini-datasets written as PNGs by a writer here that cycles the five
     scanline filters (64 + 64 NYU training frames, 32 test frames, 64 ICVL
@@ -103,7 +118,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     within 1e-4, under 1e-3 of the pixels picked differently).  The cuts
     (iterations, ``sample_poses``, cadences, frames) are on the phase's
     line;
-12. the serving surface, each with the launch counts set to 0 just before
+13. the serving surface, each with the launch counts set to 0 just before
     and read just after: ``device_detect_batch`` over 256 seeded random
     hands on the card against the CPU (run after phase 3: u and v equal, z
     within the 128 float32 ulps that ``tests/test_torch_detect.py``
@@ -122,7 +137,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     the latent walk (``cli.latent_walk.main``, 16 steps: the AVI and the
     strip, finite frames, 15 IN + LeakyReLU launches, the walk within 1e-3
     of the same walk on the CPU);
-13. data parallelism (``lsps_tpu_torch/parallel``) at nnyu widths: (a)
+14. data parallelism (``lsps_tpu_torch/parallel``) at nnyu widths: (a)
     two ranks sharing the card under gloo, started by ``python -m
     torch.distributed.run --nproc-per-node 2 chip_smoke.py --dp-rank
     SPEC``, take three ``pretrain_update_raw`` steps at global batch 32
@@ -140,7 +155,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     beside the card's name and power limit: two ranks sharing one card,
     not a scaling figure (``python3 chip_smoke.py --dp-cards`` runs part
     (a) with one NCCL rank on each card of a machine with several);
-14. print the ``kernels`` line, the card's name and power limit, and last
+15. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -299,20 +314,28 @@ def host_ms(torch, fn, iters, warmup=3):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_kernels(torch, fn, iters=10, tries=6):
+def profile_kernels(torch, fn, iters=10, tries=6, symbol=None):
     """Device time by kernel name over ``iters`` calls of ``fn``, from
     torch.profiler: ({name: (ms per call, launches per call)}, device ms
     per call, wall ms per call).  A trace that holds no device event at
-    all is taken again (and logged), up to ``tries`` times: the profiler
-    on the card's machine has returned an empty trace for a call that
-    launches a kernel, three times in a row once, which the same call
-    traced in every other run."""
+    all, or, given ``symbol``, fewer launches of the kernel whose name
+    holds it than calls, is taken again (and logged), up to ``tries``
+    times: the profiler on the card's machine has returned an empty trace
+    for a call that launches a kernel, three times in a row once, and a
+    trace holding fewer launches than calls, where the same call traced
+    in full in every other run."""
     for attempt in range(tries):
         by_name, dev_ms, wall = _profile_once(torch, fn, iters)
-        if by_name:
+        if by_name and (symbol is None or round(
+                launches_of(by_name, symbol), 6) >= 1):
             break
-        log(f"profiler: an empty trace (attempt {attempt + 1} of {tries})")
+        log(f"profiler: a short trace (attempt {attempt + 1} of {tries})")
     return by_name, dev_ms, wall
+
+
+def launches_of(by_name, symbol):
+    """Launches per call of the kernels whose names hold ``symbol``."""
+    return sum(n for name, (_, n) in by_name.items() if symbol in name)
 
 
 def _profile_once(torch, fn, iters):
@@ -2513,6 +2536,329 @@ def phase_realdata(torch, dev, raw_rows):
 
 
 # ---------------------------------------------------------------------------
+# host detection and tracking, and the MSRA15 and POST importers
+# ---------------------------------------------------------------------------
+
+TRACK_FRAMES = 64
+TRACK_SEED = 21
+TRACK_ITERS = 5           # refine_com_iterative rounds a frame, as the
+                          # reference's live loop runs them
+TRACK_PX, TRACK_MM = 2.0, 3.0   # host vs device CoM: the JAX package's own
+                                # bound (tests/test_detect_jax.py:47-48)
+LIVE_BUDGET_MS = 1000.0 / 30    # one frame of a 30 fps camera
+FAR_POINT = 2001.0        # utils.realtime.CAMERAS["kinect"]'s far point
+PROFILED_CALLS = 10
+MSRA_SUBJECTS, MSRA_GESTURES, MSRA_FRAMES = ("P0", "P3"), ("1", "2"), 8
+POST_SYNTH, POST_REAL = 8, 4
+POST_LABEL_BGR = (60, 30, 220)  # HSV (175, 220, 220): inside the gate
+
+
+def track_frames(n, seed):
+    """``n`` NYU-camera (480, 640) frames of one hand rendered by the
+    port's ``render_hand_depth`` (the same joints in every frame) whose
+    CoM moves on a smooth closed path, ~5-7 px a frame."""
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.synthetic import render_hand_depth
+
+    cam = Camera.nyu()
+    frames = np.zeros((n, H, W), np.float32)
+    for t in range(n):
+        a = 2.0 * np.pi * t / n
+        com3d = np.array([70.0 * np.sin(a), 45.0 * np.sin(2.0 * a),
+                          780.0 + 60.0 * np.cos(a)], np.float32)
+        frames[t] = render_hand_depth(cam, com3d, 36,
+                                      np.random.RandomState(seed))[0]
+    return frames
+
+
+def write_msra(base, seed=5):
+    """An MSRA15 mini-tree: ``MSRA_SUBJECTS`` x ``MSRA_GESTURES`` x
+    ``MSRA_FRAMES`` 320 x 240 ``.bin`` frames (a 6-int box header, the
+    float32 patch inside it) with a ``joint.txt`` each, z negated."""
+    import struct
+
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.synthetic import render_hand_depth
+
+    cam = Camera.msra()
+    rs = np.random.RandomState(seed)
+    for s in MSRA_SUBJECTS:
+        for g in MSRA_GESTURES:
+            d = base / s / g
+            d.mkdir(parents=True)
+            lines = [str(MSRA_FRAMES)]
+            for i in range(MSRA_FRAMES):
+                com3d = np.array([rs.uniform(-40, 40), rs.uniform(-30, 30),
+                                  rs.uniform(300, 420)], np.float32)
+                dpt, joints = render_hand_depth(cam, com3d, 21, rs)
+                ys, xs = np.nonzero(dpt)
+                top, bottom = ys.min(), ys.max() + 1
+                left, right = xs.min(), xs.max() + 1
+                with open(d / f"{i:06d}_depth.bin", "wb") as f:
+                    f.write(struct.pack("6i", dpt.shape[1], dpt.shape[0],
+                                        left, top, right, bottom))
+                    dpt[top:bottom, left:right].tofile(f)
+                joints = joints * np.float32([1, 1, -1])
+                lines.append(" ".join(f"{v:.4f}" for v in joints.ravel()))
+            (d / "joint.txt").write_text("\n".join(lines) + "\n")
+    return base
+
+
+def write_post(base, seed=6):
+    """A POST mini-tree under ``base/dmaps`` and ``base/lmaps``:
+    ``POST_SYNTH`` synthetic 640 x 480 16-bit depth maps (invalid 10000)
+    with 18 part blobs and their 16-bit label maps, and ``POST_REAL`` real
+    frames (depth x 5) with an RGB label image painted ``POST_LABEL_BGR``
+    over the subject; written with ``png_bytes``."""
+    from lsps_tpu_torch.data.importers import POSTImporter
+
+    rs = np.random.RandomState(seed)
+    for kind in ("dmaps", "lmaps"):
+        for seq in ("synth0", "test0"):
+            (base / kind / seq).mkdir(parents=True)
+    for i in range(POST_SYNTH):
+        dpt = np.full((H, W), 10000, np.uint16)
+        lbl = np.zeros((H, W), np.uint16)
+        for j, pid in enumerate(POSTImporter.LBL_IDS):
+            r0 = 140 + (j // 6) * 60 + rs.randint(-8, 9)
+            c0 = 200 + (j % 6) * 40 + rs.randint(-5, 6)
+            dpt[r0:r0 + 30, c0:c0 + 30] = rs.randint(1900, 2300, (30, 30))
+            lbl[r0:r0 + 30, c0:c0 + 30] = pid
+        (base / "dmaps" / "synth0" / f"img_d_{i:04d}.png").write_bytes(
+            png_bytes(dpt))
+        (base / "lmaps" / "synth0" / f"img_l_{i:04d}.png").write_bytes(
+            png_bytes(lbl))
+    for i in range(POST_REAL):
+        dpt = np.zeros((H, W), np.uint16)
+        r0, c0 = 90 + 10 * i, 260 + 15 * i
+        dpt[r0:r0 + 110, c0:c0 + 90] = rs.randint(1800, 2300,
+                                                   (110, 90)) * 5
+        dpt[400:] = 2500 * 5                          # a floor, removed
+        rgb = np.zeros((H, W, 3), np.uint8)
+        rgb[r0:r0 + 110, c0:c0 + 90] = POST_LABEL_BGR[::-1]
+        (base / "dmaps" / "test0" / f"img_{i:04d}.png").write_bytes(
+            png_bytes(dpt))
+        (base / "lmaps" / "test0" / f"img_{i:04d}.png").write_bytes(
+            png_bytes(rgb))
+    return base / "dmaps"
+
+
+def import_twice(make, seq):
+    """Import ``seq`` fresh (writing its cache), then from the cache; the
+    two held equal.  Returns (arrays, fresh frames/s, cached frames/s)."""
+    t0 = time.perf_counter()
+    fresh = make().load_sequence(seq)
+    t1 = time.perf_counter()
+    cached = make().load_sequence(seq)
+    t2 = time.perf_counter()
+    if not same_sequence(fresh, cached):
+        raise AssertionError(f"import {seq}: the cached sequence differs "
+                             f"from the fresh one")
+    return fresh, len(fresh) / (t1 - t0), len(cached) / (t2 - t1)
+
+
+def phase_track(torch, dev, hyp, sd):
+    """A live depth sequence detected once and tracked on the host, each
+    frame estimated on the card: ``HandDetector.detect`` (hand size on) on
+    every frame, ``refine_com_iterative`` from the previous CoM, a
+    ``Frame`` per frame, ``predict_frames`` at batch 1 per frame and once
+    at batch 64; host CoMs against the device detector (``predict_raw``),
+    joints against the CPU, one crop launch per call.  Then the MSRA15 and
+    POST importers on mini-trees, fresh and cached, and MSRA15's raw
+    frames through ``predict_frames`` against the CPU.  Returns (row, crop
+    launches by path)."""
+    import shutil
+
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.detector import HandDetector
+    from lsps_tpu_torch.data.importers import MSRA15Importer, POSTImporter
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.serve.inference import PoseEstimator
+    from lsps_tpu_torch.utils.realtime import Frame
+
+    t_phase = time.perf_counter()
+    cam, n = Camera.nyu(), TRACK_FRAMES
+    cube = (CUBE_MM,) * 3
+    cubes = np.full((n, 3), CUBE_MM, np.float32)
+    frames = track_frames(n, TRACK_SEED)
+    row = {"frames": n, "render_s": time.perf_counter() - t_phase}
+
+    # the host detector on every frame; frame 0's CoM starts the track
+    t0 = time.perf_counter()
+    found = [HandDetector(f, cam.fx, cam.fy).detect(size=cube)
+             for f in frames]
+    row["detect_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n
+    detected = np.stack([c for c, _ in found])
+    row["hand_size_mm"] = float(found[0][1][0])
+    if not (detected[:, 2] > 0).all():
+        raise AssertionError("track: the host detector missed a hand")
+
+    launches = {}
+    with tf32_off(torch):
+        est = PoseEstimator(hyp, sd, device=dev)
+        est.predict_frames(frames[:1], detected[:1], cubes[:1])  # warm-up
+        torch.cuda.synchronize()
+        # the live loop: track on the host, estimate on the card
+        WK.crop_normalize.launches = 0
+        tracked, live, loop_ms, refine_ms = [detected[0]], [], [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            if i:
+                hd = HandDetector(frames[i], cam.fx, cam.fy)
+                tracked.append(hd.refine_com_iterative(tracked[-1],
+                                                       TRACK_ITERS, cube))
+            t1 = time.perf_counter()
+            live.append(est.predict_frames(
+                frames[i:i + 1], tracked[-1][None].astype(np.float32),
+                cubes[:1]).cpu())
+            t2 = time.perf_counter()
+            refine_ms.append((t1 - t0) * 1e3)
+            loop_ms.append((t2 - t0) * 1e3)
+        launches["tracking loop (batch 1 per frame)"] = \
+            WK.crop_normalize.launches
+        tracked = np.stack(tracked)
+        live = torch.cat(live)
+        row["refine_ms_per_frame"] = float(np.mean(refine_ms[1:]))
+        row["live_ms_per_frame"] = {
+            "median": float(np.median(loop_ms)),
+            "mean": float(np.mean(loop_ms)), "max": float(np.max(loop_ms)),
+            "budget": LIVE_BUDGET_MS}
+
+        t0 = time.perf_counter()
+        built = [Frame.from_depth(f, cam, FAR_POINT, com2d=c, cube=cube)
+                 for f, c in zip(frames, tracked)]
+        row["frame_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n
+        for f, c in zip(built, tracked):
+            if not (f.crop_dm.shape == (128, 128)
+                    and np.isfinite(f.crop_dm).all()
+                    and f.crop_dm.min() >= -0.5 and f.crop_dm.max() <= 0.5
+                    and np.array_equal(f.com2d, c.astype(np.float32))):
+                raise AssertionError("track: a Frame's crop or CoM is off")
+
+        WK.crop_normalize.launches = 0
+        batch = est.predict_frames(frames, tracked.astype(np.float32),
+                                   cubes)
+        _, dev_coms = est.predict_raw(frames, cubes, return_coms=True)
+        torch.cuda.synchronize()
+        launches["tracking batch 64 and predict_raw"] = \
+            WK.crop_normalize.launches
+        by_name, _, _ = profile_kernels(
+            torch, lambda: est.predict_frames(
+                frames[:1], tracked[:1].astype(np.float32), cubes[:1]),
+            PROFILED_CALLS, symbol="crop_warp_kernel")
+        per_call = launches_of(by_name, "crop_warp_kernel")
+        cpu = PoseEstimator(hyp, sd, device="cpu").predict_frames(
+            frames, tracked.astype(np.float32), cubes)
+    if launches["tracking loop (batch 1 per frame)"] != n or \
+            launches["tracking batch 64 and predict_raw"] != 2 or \
+            round(per_call, 6) != 1:
+        raise AssertionError(f"track: crop launches {launches}, {per_call} "
+                             f"per call in the profiler; want one per call")
+    batch = batch.cpu()
+    cpu_err = float((batch - cpu).abs().max())
+    b1_err = float((live - batch).abs().max())
+    if batch.shape != (n, hyp["vae"]["input_dim"] // 3, 3) or \
+            not bool(batch.isfinite().all()) or cpu_err > JOINTS_CPU_MM or \
+            b1_err > JOINTS_CPU_MM:
+        raise AssertionError(f"track: joints {tuple(batch.shape)}, card vs "
+                             f"CPU {cpu_err} mm, batch 1 vs 64 {b1_err} mm "
+                             f"(tol {JOINTS_CPU_MM})")
+    dev_coms = dev_coms.cpu().numpy().astype(np.float64)
+    gaps = {}
+    for name, coms in (("detect", detected), ("tracked", tracked)):
+        g = np.abs(coms - dev_coms)
+        gaps[name] = {"du_px": float(g[:, 0].max()),
+                      "dv_px": float(g[:, 1].max()),
+                      "dz_mm": float(g[:, 2].max())}
+        if g[:, :2].max() > TRACK_PX or g[:, 2].max() > TRACK_MM:
+            raise AssertionError(f"track: {name} CoMs vs the device "
+                                 f"detector {gaps[name]} (bound {TRACK_PX} "
+                                 f"px, {TRACK_MM} mm)")
+    row.update(host_vs_device=gaps, joints_card_vs_cpu_mm=cpu_err,
+               joints_batch1_vs_64_mm=b1_err, crop_launches_per_call=per_call)
+    log(f"track: {n} frames, host detect {row['detect_ms_per_frame']:.2f} "
+        f"ms a frame (hand size {row['hand_size_mm']:.1f} mm), "
+        f"refine_com_iterative {row['refine_ms_per_frame']:.2f}, "
+        f"Frame.from_depth {row['frame_ms_per_frame']:.2f}; live loop "
+        f"(track + predict_frames B=1) median "
+        f"{row['live_ms_per_frame']['median']:.2f} ms a frame against "
+        f"{LIVE_BUDGET_MS:.1f}; host vs device CoMs {json.dumps(gaps)}; "
+        f"joints card vs CPU {cpu_err:.3g} mm, B=1 vs B=64 {b1_err:.3g}; "
+        f"crop launches {json.dumps(launches)}, {per_call:g} per call")
+
+    # the importers
+    tmp = Path(__file__).resolve().parent / "build" / "smoke_track"
+    shutil.rmtree(tmp, ignore_errors=True)
+    cache = str(tmp / "cache")
+    t0 = time.perf_counter()
+    msra_root = write_msra(tmp / "msra")
+    post_root = write_post(tmp / "post")
+    row["write_s"] = time.perf_counter() - t0
+    rates = {}
+    msra = []
+    for s in MSRA_SUBJECTS:
+        arrays, fresh, cached = import_twice(
+            lambda: MSRA15Importer(str(msra_root), cache_dir=cache), s)
+        msra.append(arrays)
+        rates[f"msra15 {s}"] = (fresh, cached)
+    synth, fresh, cached = import_twice(
+        lambda: POSTImporter(str(post_root), cache_dir=cache), "synth")
+    rates["post synth"] = (fresh, cached)
+    real, fresh, cached = import_twice(
+        lambda: POSTImporter(str(post_root), cache_dir=cache), "test")
+    rates["post real"] = (fresh, cached)
+    want = MSRA_FRAMES * len(MSRA_GESTURES)
+    if [len(a) for a in msra] != [want] * len(MSRA_SUBJECTS) or \
+            synth.gtorig.shape != (POST_SYNTH, 18, 3) or \
+            real.gtorig.shape != (POST_REAL, 1, 3) or \
+            not all(np.isfinite(a.gt3Dcrop).all() for a in
+                    (*msra, synth, real)):
+        raise AssertionError(f"importers: MSRA15 {[len(a) for a in msra]}, "
+                             f"POST {synth.gtorig.shape} {real.gtorig.shape}")
+    for i, com in enumerate(real.gtorig[:, 0]):
+        r0, c0 = 90 + 10 * i, 260 + 15 * i
+        if not (c0 <= com[0] <= c0 + 90 and r0 <= com[1] <= r0 + 110):
+            raise AssertionError(f"POST real frame {i}: CoM {com} outside "
+                                 "the painted subject")
+
+    # MSRA15's raw frames through the estimator, card against CPU
+    mcam = Camera.msra()
+    imp = MSRA15Importer(str(msra_root), use_cache=False)
+    raw = np.stack([imp.load_depth_map(f) for a in msra
+                    for f in a.file_names])
+    mcoms = mcam.to_img(np.concatenate([a.com for a in msra]))
+    mcubes = np.concatenate([np.broadcast_to(a.cube, (len(a), 3))
+                             for a in msra]).astype(np.float32)
+    with tf32_off(torch):
+        WK.crop_normalize.launches = 0
+        got = PoseEstimator(hyp, sd, camera=mcam, device=dev).predict_frames(
+            raw, mcoms, mcubes)
+        torch.cuda.synchronize()
+        launches[f"msra15 raw frames (batch {len(raw)})"] = \
+            WK.crop_normalize.launches
+        want_j = PoseEstimator(hyp, sd, camera=mcam,
+                               device="cpu").predict_frames(raw, mcoms,
+                                                            mcubes)
+    msra_err = float((got.cpu() - want_j).abs().max())
+    if launches[f"msra15 raw frames (batch {len(raw)})"] != 1 or \
+            not bool(got.isfinite().all()) or msra_err > JOINTS_CPU_MM:
+        raise AssertionError(f"MSRA15 frames: launches {launches}, card vs "
+                             f"CPU {msra_err} mm")
+    shutil.rmtree(tmp)
+    row.update(import_frames_per_s={k: {"fresh": f, "cached": c}
+                                    for k, (f, c) in rates.items()},
+               msra_joints_card_vs_cpu_mm=msra_err,
+               phase_s=time.perf_counter() - t_phase)
+    shown = {k: [round(f, 1), round(c, 1)] for k, (f, c) in rates.items()}
+    log(f"track importers: MSRA15 {len(raw)} frames, POST {POST_SYNTH} "
+        f"synthetic + {POST_REAL} real, written in {row['write_s']:.1f} s; "
+        f"frames/s fresh / cached {json.dumps(shown)}; "
+        f"MSRA15 raw frames card vs CPU {msra_err:.3g} mm; phase "
+        f"{row['phase_s']:.1f} s")
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
 # the serving surface: detection card vs CPU, the daemon, export, the walk
 # ---------------------------------------------------------------------------
 
@@ -3630,6 +3976,8 @@ def main() -> int:
     com_gap = phase_com(torch, dev, cam)
     timing = phase_timing(torch, dev, hyp, sd)
     mark("serve, com, serve timing")
+    track_row, track_launches = phase_track(torch, dev, hyp, sd)
+    mark("track")
     norm_errs = phase_norm(torch, dev)
     log("norm max |kernel - plain|: float32 "
         f"{norm_errs[torch.float32]}, bfloat16 {norm_errs[torch.bfloat16]}")
@@ -3691,6 +4039,8 @@ def main() -> int:
          "export": export_rows, "latent_walk": walk_row,
          "card": gpu_name_and_power()}))
     log("data-parallel phase " + json.dumps(dp_row))
+    log("tracking phase " + json.dumps(
+        {**track_row, "card": gpu_name_and_power()}))
     log("training path checks " + json.dumps(
         {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
          "scan_ckpt": scan_checks, "launches_by_path": path_launches,
@@ -3738,7 +4088,8 @@ def main() -> int:
                if k != "artifact daemon"},
             "artifact daemon": export_launches["artifact daemon"],
             f"sharded serving, {DP_WORLD} replicas on the card (1 call)":
-                dp_crop_launches},
+                dp_crop_launches,
+            **{f"host tracking: {k}": v for k, v in track_launches.items()}},
         # ms per call of the exported programs beside the live call
         "exported_ms_per_call": {
             k: {"ms": r["ms_per_call"], "live_ms": r["live_ms_per_call"],

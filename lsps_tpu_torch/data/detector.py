@@ -31,10 +31,16 @@ The cv2 calls of that path are numpy here and pick the pixels cv2 picks:
 * ``cv2.getRotationMatrix2D`` scales the angle by ``CV_PI / 180`` in
   double, as :func:`rotation_matrix_2d` does.
 
-Not ported here (``ROADMAP.md``): the contour detector and tracker
-(``detect``, ``track``, ``refine_com_iterative``), the bilinear resizes
-(``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``) and the CoM refinement hook
-(``refine_net``), which no dataset of the JAX package selects.
+The closest-object detector and the tracker (``detect``,
+``refine_com_iterative``, ``track`` with its ``refine_net`` hook,
+``estimate_hand_size``) find contours with
+:mod:`lsps_tpu_torch.data.contours`, which returns cv2's contours in cv2's
+order, so the first contour over 200 pixels of area, and every CoM that
+follows from it, is the JAX package's to the bit.
+
+Not ported here (``ROADMAP.md``): the bilinear resizes
+(``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``), which no dataset of the JAX
+package selects.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from typing import Tuple
 
 import numpy as np
 
+from lsps_tpu_torch.data.contours import (bounding_rect, contour_area,
+                                         contour_moments, find_contours)
 from lsps_tpu_torch.data.transformations import (rotate_points_2d,
                                                  rotate_points_3d)
 
@@ -158,7 +166,7 @@ def warp_perspective_nearest(src, M, dsize, border=0.0) -> np.ndarray:
 class HandDetector:
     """Crop a hand around its center of mass."""
 
-    def __init__(self, dpt, fx, fy, importer=None):
+    def __init__(self, dpt, fx, fy, importer=None, refine_net=None):
         dpt = np.asarray(dpt)
         # clamp usable depth range (handdetector.py:59-63)
         self.max_depth = min(6500, dpt.max())
@@ -169,6 +177,7 @@ class HandDetector:
         self.fx = fx
         self.fy = fy
         self.importer = importer      # provides joint projection
+        self.refine_net = refine_net  # optional CoM refinement hook
 
     @staticmethod
     def detection_mode_to_string(com, refine_net) -> str:
@@ -318,6 +327,21 @@ class HandDetector:
             cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend,
                                     zstart, zend)
 
+        if docom and self.refine_net is not None and self.importer is not None:
+            # move the CoM by the refinement hook's offset
+            # (handdetector.py:430-447)
+            rz = self.resize_crop(cropped, dsize)
+            new_com3d = (self.refine_com(rz, size, com)
+                         + self.importer.joint_img_to_3d(com))
+            com = self.importer.joint_3d_to_img(new_com3d)
+            if np.allclose(com, 0.0):
+                com[2] = cropped[cropped.shape[0] // 2,
+                                 cropped.shape[1] // 2]
+            xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(
+                com, size)
+            cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend,
+                                    zstart, zend)
+
         wb, hb = xend - xstart, yend - ystart
         # aspect-preserving destination size; py2 floor division
         # (handdetector.py:449-454)
@@ -367,6 +391,126 @@ class HandDetector:
         ys = int(np.floor(dsize[1] / 2.0 - rz.shape[0] / 2.0))
         ret[ys:ys + rz.shape[0], xs:xs + rz.shape[1]] = rz
         return ret
+
+    # ------------------------------------------------------------------
+    # detection / tracking (handdetector.py:506-636)
+    # ------------------------------------------------------------------
+    def refine_com_iterative(self, com, num_iter, size=(250, 250, 250)):
+        """Iterative CoM refinement (handdetector.py:548-569): the CoM of
+        the cube's crop, ``num_iter`` times; an empty crop keeps its
+        centre pixel's depth."""
+        com = np.asarray(com, np.float64).copy()
+        for _ in range(num_iter):
+            xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(
+                com, size)
+            cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend,
+                                    zstart, zend)
+            com = self.calculate_com(cropped)
+            if np.allclose(com, 0.0):
+                com[2] = cropped[cropped.shape[0] // 2,
+                                 cropped.shape[1] // 2]
+            com[0] += max(xstart, 0)
+            com[1] += max(ystart, 0)
+        return com
+
+    def detect(self, size=(250, 250, 250), do_hand_size=True):
+        """Closest-object depth-sweep detector (handdetector.py:571-636):
+        the depth range in 65 slices from the sixth on; in the first
+        slice with a contour over 200 pixels of area, the CoM of that
+        slice around the contour's centroid, refined 5 times.  Returns
+        (com, cube); (zeros, size) when no slice holds one."""
+        steps = 65
+        dz = (self.max_depth - self.min_depth) / float(steps)
+        for i in range(5, steps):
+            lo = i * dz + self.min_depth
+            hi = (i + 1) * dz + self.min_depth
+            part = np.logical_and(self.dpt >= lo, self.dpt <= hi)
+            if not part.any():
+                # most slices are empty, and this test is ~30x cheaper
+                # than find_contours' own check of the mask
+                continue
+            contours, _ = find_contours(part)
+            for c in contours:
+                if contour_area(c) <= 200:
+                    continue
+                m = contour_moments(c)
+                cx = int(np.rint(m["m10"] / m["m00"]))
+                cy = int(np.rint(m["m01"] / m["m00"]))
+                xstart = int(max(cx - 100, 0))
+                xend = int(min(cx + 100, self.dpt.shape[1] - 1))
+                ystart = int(max(cy - 100, 0))
+                yend = int(min(cy + 100, self.dpt.shape[0] - 1))
+                cropped = self.dpt[ystart:yend, xstart:xend].copy()
+                cropped[cropped < lo] = 0.0
+                cropped[cropped > hi] = 0.0
+                com = self.calculate_com(cropped)
+                if np.allclose(com, 0.0):
+                    com[2] = cropped[cropped.shape[0] // 2,
+                                     cropped.shape[1] // 2]
+                com[0] += xstart
+                com[1] += ystart
+                com = self.refine_com_iterative(com, 5, size)
+                if do_hand_size:
+                    return com, self._hand_size_from_depth(com, size)
+                return com, size
+        return np.zeros(3), size
+
+    def track(self, com, size=(250, 250, 250), dsize=(128, 128),
+              do_hand_size=True):
+        """Track the CoM with the refinement net (handdetector.py:506-546):
+        the net's metric offset added to the CoM's 3D point."""
+        xstart, xend, ystart, yend, zstart, zend = self.com_to_bounds(com,
+                                                                      size)
+        cropped = self.get_crop(self.dpt, xstart, xend, ystart, yend, zstart,
+                                zend)
+        if self.refine_net is None or self.importer is None:
+            raise RuntimeError("Need refine_net for tracking")
+        rz = self.resize_crop(cropped, dsize)
+        new_com3d = (self.refine_com(rz, size, com)
+                     + self.importer.joint_img_to_3d(np.asarray(com)))
+        com = self.importer.joint_3d_to_img(new_com3d)
+        if np.allclose(com, 0.0):
+            com[2] = cropped[cropped.shape[0] // 2, cropped.shape[1] // 2]
+        if do_hand_size:
+            return com, self._hand_size_from_depth(com, size)
+        return com, size
+
+    def refine_com(self, cropped, size, com):
+        """Run the CoM refinement hook on the crop normalized to [-1, 1]
+        around the CoM's depth (handdetector.py:638-680).  ``refine_net``
+        is any callable from the crop to a (3,) offset in normalized
+        units."""
+        img = np.asarray(cropped, np.float32).copy()
+        img[img == 0] = com[2] + size[2] / 2.0
+        img[img >= com[2] + size[2] / 2.0] = com[2] + size[2] / 2.0
+        img[img <= com[2] - size[2] / 2.0] = com[2] - size[2] / 2.0
+        img -= com[2]
+        img /= size[2] / 2.0
+        return np.asarray(self.refine_net(img)) * (size[2] / 2.0)
+
+    def _hand_size_from_depth(self, com, size):
+        """The cube from the largest contour of the CoM's depth range."""
+        zstart = com[2] - size[2] / 2.0
+        zend = com[2] + size[2] / 2.0
+        part = np.logical_and(self.dpt >= zstart, self.dpt <= zend)
+        contours, _ = find_contours(part)
+        if not contours:
+            return size
+        areas = [contour_area(cc) for cc in contours]
+        return self.estimate_hand_size(contours[int(np.argmax(areas))], com,
+                                       size)
+
+    def estimate_hand_size(self, contour, com, cube=(250, 250, 250),
+                           tol=0.0):
+        """Metric cube estimate from the hand contour's bounding box
+        (handdetector.py:920-946)."""
+        x, y, w, h = bounding_rect(contour)
+        xstart = (com[0] - w / 2.0) * com[2] / self.fx
+        xend = (com[0] + w / 2.0) * com[2] / self.fx
+        ystart = (com[1] - h / 2.0) * com[2] / self.fy
+        yend = (com[1] + h / 2.0) * com[2] / self.fy
+        sz = ((xend - xstart) + (yend - ystart)) / 2.0
+        return (sz + tol, sz + tol, sz + tol)
 
     # ------------------------------------------------------------------
     # augment warps (handdetector.py:682-807)

@@ -1,4 +1,4 @@
-"""Dataset importers: the base, NYU and ICVL (host numpy).
+"""Dataset importers: the base, NYU, ICVL, MSRA15 and POST (host numpy).
 
 The port's copy of ``lsps_tpu/data/importers.py``: the camera passthroughs,
 the per-frame crop step, the ``.npz`` sequence cache with its uint16 crops,
@@ -11,14 +11,17 @@ Depth maps are PNGs, read with :func:`lsps_tpu_torch.data.png.read_png`
 where the JAX package uses PIL: NYU packs 16-bit depth into the green and
 blue bytes of RGB frames, ICVL stores 16-bit gray frames.  Labels come from
 ``joint_data.mat`` (``scipy.io.loadmat``) and from per-sequence text files.
-
-Not ported here (``ROADMAP.md``): the MSRA15 and POST importers, which no
-config or dataset class of the JAX package selects.
+MSRA15 frames are ``.bin`` patches behind a bounding-box header.  POST
+pairs 16-bit depth PNGs with part-label PNGs (synthetic frames) or with
+colour label images, read as cv2 reads them and segmented by hue
+(:mod:`lsps_tpu_torch.data.color`; real frames).
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import struct
 from typing import List
 
 import numpy as np
@@ -27,6 +30,7 @@ from lsps_tpu_torch.data.basetypes import (DepthFrame, FrameArrays,
                                            NamedImgSequence, decode_dpt_u16,
                                            encode_dpt_u16)
 from lsps_tpu_torch.data.camera import Camera
+from lsps_tpu_torch.data.color import bgr_to_hsv, imread_color, in_range
 from lsps_tpu_torch.data.detector import HandDetector
 from lsps_tpu_torch.data.png import read_png
 from lsps_tpu_torch.data.transformations import transform_points_2d
@@ -41,12 +45,13 @@ class DepthImporter:
     crop_joint_idx = 0
 
     def __init__(self, camera: Camera, basepath: str = "", use_cache=True,
-                 cache_dir="./cache/", hand=None):
+                 cache_dir="./cache/", hand=None, refine_net=None):
         self.camera = camera
         self.basepath = basepath
         self.use_cache = use_cache
         self.cache_dir = cache_dir
         self.hand = hand
+        self.refine_net = refine_net  # CoM refinement hook (docom)
         self.default_cubes = {}
         self.sides = {}
 
@@ -95,7 +100,8 @@ class DepthImporter:
     # ------------------------------------------------------------------
     def _cache_path(self, seq_name, sub_seq, docom, cube) -> str:
         """The JAX package's cache file name for this sequence."""
-        mode = HandDetector.detection_mode_to_string(docom, False)
+        mode = HandDetector.detection_mode_to_string(
+            docom, self.refine_net is not None)
         sub = "" if sub_seq is None else "_" + "".join(sub_seq)
         extra = self._cache_extra()
         return os.path.join(
@@ -160,7 +166,8 @@ class DepthImporter:
 
     def _crop_frame(self, dpt, gtorig, gt3Dorig, cube, docom, fname):
         """Shared per-frame crop step (reference importers.py:391-411)."""
-        hd = HandDetector(dpt, self.fx, self.fy, importer=self)
+        hd = HandDetector(dpt, self.fx, self.fy, importer=self,
+                          refine_net=self.refine_net)
         if not hd.check_image(1):
             return None
         try:
@@ -428,3 +435,249 @@ class ICVLImporter(DepthImporter):
                     ev[j, 1] = float(part[j * 3 + 1 + off])
                 data.append(ev)
         return data
+
+
+# ---------------------------------------------------------------------------
+@register("importer", "MSRA15Importer")
+class MSRA15Importer(DepthImporter):
+    """MSRA 2015 dataset (reference importers.py:599-946).
+
+    Binary ``.bin`` depth patches with a 6-int bbox header; 21 joints with
+    z negated; per-subject cube sizes; crop around joint 5.
+    """
+
+    def __init__(self, basepath, use_cache=True, cache_dir="./cache/",
+                 refine_net=None, hand=None):
+        super().__init__(Camera.msra(), basepath, use_cache, cache_dir,
+                         hand, refine_net)
+        self.num_joints = 21
+        self.crop_joint_idx = 5
+        self.default_cubes = {
+            "P0": (240,) * 3, "P1": (240,) * 3, "P2": (240,) * 3,
+            "P3": (220,) * 3, "P4": (220,) * 3, "P5": (220,) * 3,
+            "P6": (210,) * 3, "P7": (200,) * 3, "P8": (190,) * 3}
+        self.sides = {f"P{i}": "right" for i in range(9)}
+
+    def load_depth_map(self, filename) -> np.ndarray:
+        """Binary patch format with bbox header (importers.py:640-658):
+        width, height, left, top, right, bottom as int32, then the
+        float32 patch."""
+        with open(filename, "rb") as f:
+            width, height, left, top, right, bottom = struct.unpack(
+                "6i", f.read(24))
+            patch = np.fromfile(f, dtype="float32")
+        img = np.zeros((height, width), np.float32)
+        img[top:bottom, left:right] = patch.reshape(bottom - top,
+                                                    right - left)
+        return img
+
+    loadDepthMap = load_depth_map
+
+    def get_depth_map_nv(self):
+        return 32001
+
+    def load_sequence(self, seq_name, sub_seq=None, nmax=float("inf"),
+                      shuffle=False, rng=None, docom=False,
+                      cube=None) -> FrameArrays:
+        config = {"cube": tuple(cube) if cube is not None
+                  else self.default_cubes[seq_name]}
+        cache = self._cache_path(seq_name, sub_seq, docom, config["cube"])
+        hit = self._load_cached(cache, shuffle, rng, nmax)
+        if hit is not None:
+            return hit
+
+        objdir = os.path.join(self.basepath, seq_name)
+        subdirs = sorted(d for d in os.listdir(objdir)
+                         if os.path.isdir(os.path.join(objdir, d)))
+        frames: List[DepthFrame] = []
+        for subdir in subdirs:
+            if sub_seq is not None and subdir not in sub_seq:
+                continue
+            labels = os.path.join(objdir, subdir, "joint.txt")
+            with open(labels) as f:
+                n_imgs = int(f.readline())
+                for i in range(n_imgs):
+                    if len(frames) >= nmax:
+                        break
+                    part = f.readline().split(" ")
+                    fname = os.path.join(objdir, subdir,
+                                         f"{i:06d}_depth.bin")
+                    if not os.path.isfile(fname):
+                        continue
+                    dpt = self.load_depth_map(fname)
+                    gt3Dorig = np.asarray(
+                        part[:self.num_joints * 3],
+                        np.float32).reshape(self.num_joints, 3)
+                    gt3Dorig[:, 2] *= -1.0  # importers.py:758
+                    gtorig = self.joint_3d_to_img(gt3Dorig)
+                    fr = self._crop_frame(dpt, gtorig, gt3Dorig,
+                                          config["cube"], docom, fname)
+                    if fr is not None:
+                        frames.append(fr)
+
+        arrays = FrameArrays.from_frames(seq_name, frames, config)
+        self._save_cache(cache, arrays)
+        if shuffle and rng is not None:
+            arrays = arrays.shuffled(rng)
+        return arrays
+
+
+def _read_gray(path) -> np.ndarray:
+    """A gray PNG as float32, as ``np.float32(cv2.imread(path,
+    IMREAD_UNCHANGED))`` gives it."""
+    arr = read_png(path)
+    if arr.ndim != 2:
+        raise ValueError(f"{path}: a POST depth or part-label map is gray, "
+                         f"got shape {arr.shape}")
+    return arr.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+@register("importer", "POSTImporter")
+class POSTImporter(DepthImporter):
+    """POST full-body dataset (reference importers.py:1386-1853).
+
+    18 "joints" (body-part centers), 2000 mm crop cubes.  Synthetic
+    frames pair a depth PNG (``dmaps/*_d_*.png``, invalid = 10000) with a
+    part-label map (``lmaps/*_l_*.png``); ground truth is the per-part
+    center of mass with the part's mean depth.  Real frames carry a
+    colour label image instead: the subject is segmented by hue, the
+    floor removed by point-cloud height, and a single CoM "pose" is
+    produced.  As in the JAX package, the reference's debug popups and
+    per-frame ``.pkl`` side-dumps are left out; everything metric is kept.
+    """
+
+    # synthetic part-label ids (reference importers.py:1448)
+    LBL_IDS = [1, 2, 3, 4, 6, 7, 8, 9, 12, 16, 17, 18, 19, 20, 24, 25,
+               26, 27]
+
+    def __init__(self, basepath, use_cache=True, cache_dir="./cache/",
+                 refine_net=None, hand=None):
+        super().__init__(Camera.post(), basepath, use_cache, cache_dir,
+                         hand, refine_net)
+        self.num_joints = 18
+        self.default_cubes = {"train": (2000, 2000, 2000),
+                              "synth": (2000, 2000, 2000),
+                              "test": (2000, 2000, 2000)}
+        self.sides = {"train": "right", "synth": "right", "test": "right"}
+
+    def get_depth_map_nv(self):
+        return 32001  # importers.py:1443
+
+    def load_depth_map(self, filename, synth=True):
+        """(depth, label) pair (importers.py:1414-1436): synthetic label
+        maps live beside the depth maps (dmaps->lmaps, _d_->_l_); real
+        labels are a colour image converted to HSV."""
+        dpt = _read_gray(filename)
+        if synth:
+            lbl = _read_gray(
+                filename.replace("dmaps", "lmaps").replace("_d_", "_l_"))
+        else:
+            lbl = bgr_to_hsv(imread_color(
+                filename.replace("dmaps", "lmaps")))
+        return dpt, lbl
+
+    loadDepthMap = load_depth_map
+
+    def point_cloud(self, depth):
+        """Dense per-pixel back-projection; invalid depth -> NaN z
+        (importers.py:1816-1833)."""
+        rows, cols = depth.shape
+        c, r = np.meshgrid(np.arange(cols), np.arange(rows), sparse=True)
+        valid = (depth > 0) & (depth < 255)
+        z = np.where(valid, depth / 256.0, np.nan)
+        x = np.where(valid, z * (c - self.ux) / self.fx, 0)
+        y = np.where(valid, z * (r - self.uy) / self.fy, 0)
+        return np.dstack((x, y, z))
+
+    def prepare_samples(self, dpt, lbl, synth=True):
+        """(dpt, gtorig, gt3Dorig) from a depth/label pair
+        (importers.py:1443-1475)."""
+        from scipy import ndimage
+
+        if synth:
+            dpt = dpt.copy()
+            dpt[dpt == 10000] = 0.0
+            # per-part center of mass in (row, col) -> flip to (u, v)
+            com_rc = np.array(ndimage.center_of_mass(lbl, lbl,
+                                                     self.LBL_IDS))
+            gtorig = np.fliplr(np.floor(com_rc))
+            with np.errstate(invalid="ignore"):
+                zs = np.array([np.nanmean(np.where(lbl == i, dpt, np.nan))
+                               for i in self.LBL_IDS])
+            gtorig = np.floor(np.concatenate(
+                (gtorig, zs[:, None]), axis=1)).astype(np.float32)
+            return dpt, gtorig, self.joint_img_to_3d(gtorig)
+
+        dpt = dpt / 5.0
+        lower = np.array([169, 150, 150], dtype=np.uint8)
+        upper = np.array([189, 255, 255], dtype=np.uint8)
+        mask = in_range(lbl, lower, upper)
+        pc = self.point_cloud(1 + (dpt / 6500.0) * 254)
+        dpt[pc[:, :, 1] > 0.125] = 0.0  # floor removal
+        com_rc = ndimage.center_of_mass(mask)
+        zs = dpt[mask != 0]
+        com = np.array(list(reversed(list(com_rc)))
+                       + [np.mean(zs[zs != 0])], np.float32)[None]
+        # gtorig is image-space (u, v, z); the 3D labels go through the
+        # camera model as in the synthetic branch
+        return dpt, com, self.joint_img_to_3d(com)
+
+    def load_sequence(self, seq_name, nmax=float("inf"), shuffle=False,
+                      rng=None, docom=False, cube=None) -> FrameArrays:
+        config = {"cube": tuple(cube) if cube is not None
+                  else self.default_cubes[seq_name]}
+        cache = self._cache_path(seq_name, None, docom, config["cube"])
+        hit = self._load_cached(cache, shuffle, rng, nmax)
+        if hit is not None:
+            return hit
+
+        synth = "synth" in seq_name
+        files: List[str] = []
+        for d in sorted(glob.glob(os.path.join(self.basepath,
+                                               seq_name + "*/"))):
+            files += [os.path.join(d, f) for f in sorted(os.listdir(d))]
+
+        frames: List[DepthFrame] = []
+        n_skipped = 0
+        for fname in files:
+            if not os.path.isfile(fname):
+                continue
+            dpt, lbl = self.load_depth_map(fname, synth)
+            dpt, gtorig, gt3Dorig = self.prepare_samples(dpt, lbl, synth)
+
+            com_guess = np.floor(np.nanmean(gtorig, axis=0))
+            if not np.isfinite(com_guess).all():
+                n_skipped += 1
+                continue  # empty mask / missing part label on this frame
+            hd = HandDetector(dpt, self.fx, self.fy, importer=self,
+                              refine_net=self.refine_net)
+            try:
+                dpt_c, M, com = hd.crop_area_3d(
+                    com=com_guess, size=config["cube"], docom=docom)
+            except (UserWarning, ValueError):
+                # bad frame data: skipped.  A TypeError is a coding
+                # fault, not a data fault, and is not swallowed
+                n_skipped += 1
+                continue
+            com3d = self.joint_img_to_3d(com)
+            frames.append(DepthFrame(
+                dpt_c.astype(np.float32), gtorig,
+                transform_points_2d(gtorig, M), M.astype(np.float32),
+                gt3Dorig, gt3Dorig - com3d, com3d, fname, "",
+                self.sides[seq_name], {}))
+            if len(frames) >= nmax:
+                break
+
+        if n_skipped and not frames:
+            # every frame was skipped: a systematic data problem, and
+            # caching an empty sequence would make the failure sticky
+            raise RuntimeError(
+                f"POST sequence {seq_name!r}: all {n_skipped} readable "
+                "frames failed preprocessing (empty masks or crop "
+                "errors); refusing to cache an empty dataset")
+        arrays = FrameArrays.from_frames(seq_name, frames, config)
+        self._save_cache(cache, arrays)
+        if shuffle and rng is not None:
+            arrays = arrays.shuffled(rng)
+        return arrays

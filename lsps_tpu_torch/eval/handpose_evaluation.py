@@ -3,10 +3,14 @@
 The port's copy of the metrics of ``lsps_tpu/eval/handpose_evaluation.py``
 (reference: src/utils/handpose_evaluation.py:41-228 and the per-dataset
 joint tables, :684-913): vectorized over (N, J, 3) arrays and NaN-tolerant
-like the reference (nanmean/nanmax).
+like the reference (nanmean/nanmax).  ``Evaluation`` holds the legacy mm
+errors of src/utils/evaluation.py (x50-denormalized poses on the NYU
+14-joint protocol) and its threshold curve as text.
 
-Not ported (``ROADMAP.md``): the plots (``plotEvaluation``,
-``plotResult3D`` and the 2D overlays), which need matplotlib or cv2.
+Not ported (``ROADMAP.md`` queue 1 #7, the next item): the plots
+(``plotEvaluation``, ``plotHand3D``, ``plotResult3D``, ``plotJoints``,
+``plotResult``), which need matplotlib or cv2's drawing; the card's
+machine has neither, so they wait for a numpy rasterizer.
 """
 
 from __future__ import annotations
@@ -206,3 +210,39 @@ class MSRAHandposeEvaluation(HandposeEvaluation):
         self.jointConnectionColors = [_hsv(h, 1, v) for h in _FINGER_HUES
                                       for v in (0.4, 0.6, 0.8, 1)]
         self.plotMaxJointDist = 80
+
+
+class Evaluation:
+    """Legacy mm-error helpers on x50-denormalized poses restricted to the
+    NYU 14-joint protocol (reference src/utils/evaluation.py:5-77)."""
+
+    SCALE = 50.0
+
+    @classmethod
+    def maxJntError(cls, skel1, skel2) -> float:
+        diff = np.linalg.norm(
+            (np.asarray(skel1).reshape(-1, 3)
+             - np.asarray(skel2).reshape(-1, 3)) * cls.SCALE, axis=1)
+        return float(diff[NYU_RESTRICTED_EVAL].max())
+
+    @classmethod
+    def meanJntError(cls, skel1, skel2) -> float:
+        diff = np.linalg.norm(
+            (np.asarray(skel1).reshape(-1, 3)
+             - np.asarray(skel2).reshape(-1, 3)) * cls.SCALE, axis=1)
+        return float(diff[NYU_RESTRICTED_EVAL].mean())
+
+    @classmethod
+    def plotError(cls, score_list, fig_path) -> float:
+        """Write the threshold curve as text, one ``threshold percent``
+        line for each of 17 thresholds (0.5 to 80.5 mm); return the share
+        of scores <= 40.5 mm (evaluation.py:29-77)."""
+        scores = np.sort(np.asarray(score_list, np.float64))
+        err40 = float((scores <= 40.5).mean()) if scores.size else 0.0
+        thresholds = [t * 5.0 + 0.5 for t in range(17)]
+        with open(fig_path, "w") as f:
+            for th in thresholds:
+                pct = float((scores < th).mean()) * 100.0 if scores.size \
+                    else 0.0
+                f.write(f"{th:f} {pct:f}\n")
+        return err40

@@ -52,12 +52,17 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert len(out["names"]) >= 54
+    assert len(out["names"]) >= 58
     # the training augment, the checkpoints, the CLIs, the loader, the
     # daemon, the export, the latent walk, the checkpoint loader, the PNG
     # reader, the real-data importers and datasets, the native augment
-    # library's bindings and data parallelism are among the modules held
+    # library's bindings, data parallelism, the contour and colour code,
+    # the legacy stacks and the live frame are among the modules held
     assert {"lsps_tpu_torch.data.png",
+            "lsps_tpu_torch.data.contours",
+            "lsps_tpu_torch.data.color",
+            "lsps_tpu_torch.data.stacks",
+            "lsps_tpu_torch.utils.realtime",
             "lsps_tpu_torch.data.importers",
             "lsps_tpu_torch.data.datasets",
             "lsps_tpu_torch.data.detector",
