@@ -47,7 +47,20 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
    ``.bin`` frames) and POST (8 synthetic and 4 real frames, written by
    ``png_bytes``) mini-trees imported fresh and from their caches (held
    equal; frames/s), and MSRA15's raw frames through ``predict_frames``,
-   card against CPU;
+   card against CPU.  On the same 64 frames: the evaluation plots (the
+   card's joints against the rendered ones through ``plotEvaluation``,
+   its three PDFs checked: header, xref offsets, ``%%EOF``;
+   ``plotResult`` of the card's crop of frame 0 with both skeletons,
+   (512, 512, 3) with both stroke colours; ``plotResult3D`` of it as a
+   PNG read back by the port's reader; host ms of each); the resize
+   methods (``crop_area_3d`` under the default, ``RESIZE_CV2_NN``,
+   ``RESIZE_CV2_LINEAR`` and ``RESIZE_BILINEAR``, host ms per crop, the
+   cv2-nearest crops bit-equal to the default's; ``recrop_hand`` and
+   ``rotate_hand`` under linear; the bilinear crops' poses through
+   ``predict_crops`` on the card finite); and every common_net block
+   (``ops/common_net.py``) forward and backward at 64 channels on
+   128 x 128, batch 8, card against CPU with TF32 off within 1e-4
+   relative, and the im2col stem against the conv on the card;
 6. hold the four InstanceNorm kernels (IN + LeakyReLU and IN + residual,
    forward and backward) against their plain versions on the card at the
    training path's shapes (32 and 64 x 256 x 32 x 32), a ragged and a
@@ -94,7 +107,8 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     paths (at least 44 / 30 IN + LeakyReLU launches per iteration),
     ``--mode estimate3 --frac 0.5`` from those snapshots (the generator's
     no-grad forwards in every iteration, no backward, a finite mean
-    error), each leaving the files it should and snapshots a fresh
+    error, ``_test3d.png`` written and no "3D plot skipped" line), each
+    leaving the files it should and snapshots a fresh
     trainer resumes bit for bit; then ``pose_train`` on
     ``exps/synth.yaml`` for 2001 iterations, whose last eval must be at
     most a third of its first and at most 4.4 mm.  Each run prints its
@@ -150,11 +164,18 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     against ``--mesh-data 0`` at the same global batch: first-iteration
     losses 1e-4, the eval's mean error 1e-3; (d) ``PoseEstimator(devices=(card, card))`` at batch 32
     against the single estimator, two crop launches a call; (e) the IN +
-    LeakyReLU launches per rank and step (44 / 30).  It prints each rank's
-    ms per step, peak memory and the gradient all-reduce's ms per step
-    beside the card's name and power limit: two ranks sharing one card,
-    not a scaling figure (``python3 chip_smoke.py --dp-cards`` runs part
-    (a) with one NCCL rank on each card of a machine with several);
+    LeakyReLU launches per rank and step (44 / 30); (f) in the same two
+    ranks, tensor parallelism (``make_mesh(1, 2)``, ``shard_state_tp``
+    at ``min_out_ch=512``: the three wide ``model_S`` convs split) of
+    ``SharedDis`` at nnyu widths, ``regress_b`` at batch 32 with TF32 off
+    and cuDNN deterministic against the replicated module: the forward
+    and every gradient within 1e-4, the gathered state dict bit for bit,
+    each rank's parameter bytes and ms per forward beside the replicated
+    module's.  It prints each rank's ms per step, peak memory and the
+    gradient all-reduce's ms per step beside the card's name and power
+    limit: two ranks sharing one card, not a scaling figure (``python3
+    chip_smoke.py --dp-cards`` runs parts (a) and (f) with one NCCL rank
+    on each card of a machine with several);
 15. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -2142,7 +2163,17 @@ def phase_cli(torch, dev, raw_rows):
         raise AssertionError(f"cli estimate3: Mean err {errs}")
     check_files(run_a, [f"pre_est_{n}_{CLI_DEPTH_ITERS:08d}.npz" for n in
                         ("gen", "dis", "map", "optg", "optd")]
-                + ["images/gen.avi", "images/_test.png"], "cli estimate3")
+                + ["images/gen.avi", "images/_test.png", "images/_test3d.png"],
+                "cli estimate3")
+    # the first test frame's point cloud and skeletons (plotResult3D):
+    # written, read back whole, and no failure caught on the way
+    from lsps_tpu_torch.data.png import read_png
+
+    plot3d = read_png(str(run_a / "images" / "_test3d.png"))
+    if "3D plot skipped" in out or plot3d.shape != (600, 600, 3) or \
+            (plot3d == 255).all():
+        raise AssertionError(f"cli estimate3: _test3d.png {plot3d.shape}, "
+                             f"skipped: {'3D plot skipped' in out}")
     n = rec["iterations"]
     if rec["launches"]["in_act_forward"] != joint * n or \
             rec["launches"]["in_act_backward"] != 0:
@@ -2556,19 +2587,21 @@ POST_LABEL_BGR = (60, 30, 220)  # HSV (175, 220, 220): inside the gate
 def track_frames(n, seed):
     """``n`` NYU-camera (480, 640) frames of one hand rendered by the
     port's ``render_hand_depth`` (the same joints in every frame) whose
-    CoM moves on a smooth closed path, ~5-7 px a frame."""
+    CoM moves on a smooth closed path, ~5-7 px a frame, and each frame's
+    (36, 3) joints in mm."""
     from lsps_tpu_torch.data.camera import Camera
     from lsps_tpu_torch.data.synthetic import render_hand_depth
 
     cam = Camera.nyu()
     frames = np.zeros((n, H, W), np.float32)
+    joints = np.zeros((n, 36, 3), np.float32)
     for t in range(n):
         a = 2.0 * np.pi * t / n
         com3d = np.array([70.0 * np.sin(a), 45.0 * np.sin(2.0 * a),
                           780.0 + 60.0 * np.cos(a)], np.float32)
-        frames[t] = render_hand_depth(cam, com3d, 36,
-                                      np.random.RandomState(seed))[0]
-    return frames
+        frames[t], joints[t] = render_hand_depth(
+            cam, com3d, 36, np.random.RandomState(seed))[:2]
+    return frames, joints
 
 
 def write_msra(base, seed=5):
@@ -2680,7 +2713,7 @@ def phase_track(torch, dev, hyp, sd):
     cam, n = Camera.nyu(), TRACK_FRAMES
     cube = (CUBE_MM,) * 3
     cubes = np.full((n, 3), CUBE_MM, np.float32)
-    frames = track_frames(n, TRACK_SEED)
+    frames, gt_joints = track_frames(n, TRACK_SEED)
     row = {"frames": n, "render_s": time.perf_counter() - t_phase}
 
     # the host detector on every frame; frame 0's CoM starts the track
@@ -2855,7 +2888,367 @@ def phase_track(torch, dev, hyp, sd):
         f"frames/s fresh / cached {json.dumps(shown)}; "
         f"MSRA15 raw frames card vs CPU {msra_err:.3g} mm; phase "
         f"{row['phase_s']:.1f} s")
-    return row, launches
+    # what the plots and resize phases take up: the frames, their rendered
+    # joints, the tracked CoMs and the card's joints for them
+    return row, launches, {"frames": frames, "joints": gt_joints,
+                           "coms": tracked, "pred": batch.numpy()}
+
+
+# ---------------------------------------------------------------------------
+# the evaluation plots, the resize methods and the common_net blocks
+# ---------------------------------------------------------------------------
+
+PLOT_STROKES = {"prediction": (0, 0, 255), "ground truth": (255, 0, 0)}
+COMMON_SHAPE = (8, 64, 128, 128)   # batch, channels, height, width
+COMMON_RTOL = 1e-4                 # card vs CPU, TF32 off (Frobenius)
+COMMON_F64_RTOL = 1e-10            # the same in float64 on both
+COMMON_NORM_GRAD_RTOL = 2e-3       # float32 gradients through a norm
+RESIZE_WARPS = 16                  # recrop_hand / rotate_hand calls timed
+
+
+def phase_plots(torch, dev, data):
+    """The evaluation plots on the tracking phase's 64 frames: the card's
+    joints against the rendered ground truth through ``plotEvaluation``
+    (its three PDFs: header, xref offsets at their objects, ``%%EOF``),
+    ``plotResult`` on the card's crop of frame 0 with both skeletons
+    ((512, 512, 3), both stroke colours drawn) and ``plotResult3D`` of it
+    (a PNG the port's reader reads back); host ms of each."""
+    import shutil
+
+    from lsps_tpu_torch.data.augment import denormalize
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.png import read_png
+    from lsps_tpu_torch.data.transformations import transform_points_2d
+    from lsps_tpu_torch.eval.handpose_evaluation import NYUHandposeEvaluation
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
+    from lsps_tpu_torch.utils.pdf import check_pdf
+
+    tmp = Path(__file__).resolve().parent / "build" / "smoke_plots"
+    shutil.rmtree(tmp, ignore_errors=True)
+    cam = Camera.nyu()
+    gt, pred = data["joints"], data["pred"]
+    ev = NYUHandposeEvaluation(gt, pred)
+    ev.subfolder = str(tmp)
+    row = {"frames": len(gt), "mean_error_mm": ev.getMeanError()}
+    t0 = time.perf_counter()
+    ev.plotEvaluation("smoke")
+    row["plotEvaluation_ms"] = (time.perf_counter() - t0) * 1e3
+    row["pdf_objects"] = {}
+    for name in ("frameswithin", "joint_mean", "joint_max"):
+        path = tmp / f"smoke_{name}.pdf"
+        row["pdf_objects"][name] = check_pdf(path.read_bytes())
+
+    # frame 0 cropped on the card, back to millimetres (background 0)
+    coms = data["coms"][:1].astype(np.float32)
+    cubes = np.full((1, 3), CUBE_MM, np.float32)
+    WK.crop_normalize.launches = 0
+    crops, ms_ = crop_normalize_batch(
+        torch.from_numpy(data["frames"][:1]).to(dev),
+        torch.from_numpy(coms).to(dev), torch.from_numpy(cubes).to(dev),
+        cam.fx, cam.fy)
+    torch.cuda.synchronize()
+    row["crop_launches"] = WK.crop_normalize.launches
+    if row["crop_launches"] != 1:
+        raise AssertionError(f"plots: {row['crop_launches']} crop launches "
+                             "for one crop")
+    crop = crops[0].cpu().numpy()
+    M = ms_[0].cpu().numpy().astype(np.float64)
+    mm = denormalize(crop, coms[0], cubes[0])
+    mm[crop >= 0.99] = 0.0
+    gt2 = transform_points_2d(cam.to_img(gt[0]), M)
+    pr2 = transform_points_2d(cam.to_img(pred[0]), M)
+    t0 = time.perf_counter()
+    img = ev.plotResult(mm, gt2, pr2)
+    row["plotResult_ms"] = (time.perf_counter() - t0) * 1e3
+    drawn = {k: int((img == c).all(-1).sum())
+             for k, c in PLOT_STROKES.items()}
+    if img.shape != (512, 512, 3) or min(drawn.values()) < 100:
+        raise AssertionError(f"plotResult: {img.shape}, stroke pixels "
+                             f"{drawn}")
+    row["plotResult_stroke_pixels"] = drawn
+    t0 = time.perf_counter()
+    ev.plotResult3D(mm, M, gt[0], pred[0], filename="smoke3d", camera=cam,
+                    niceColors=True)
+    row["plotResult3D_ms"] = (time.perf_counter() - t0) * 1e3
+    back = read_png(str(tmp / "smoke3d.png"))
+    if back.shape != (600, 600, 3) or (back == 255).all():
+        raise AssertionError(f"plotResult3D: read back {back.shape}")
+    shutil.rmtree(tmp)
+    log(f"plots: plotEvaluation {row['plotEvaluation_ms']:.1f} ms (PDF "
+        f"objects {row['pdf_objects']}), plotResult "
+        f"{row['plotResult_ms']:.1f} ms, plotResult3D "
+        f"{row['plotResult3D_ms']:.1f} ms, host clock")
+    return row
+
+
+def phase_resize(torch, dev, hyp, sd, data):
+    """The resize methods over the tracking frames: ``crop_area_3d`` under
+    the default, ``RESIZE_CV2_NN``, ``RESIZE_CV2_LINEAR`` and
+    ``RESIZE_BILINEAR`` (host ms per crop; ``RESIZE_CV2_NN`` bit-equal to
+    the default), ``recrop_hand`` and ``rotate_hand`` under linear (host
+    ms per call), and the bilinear crops normalized through
+    ``predict_crops`` on the card (finite poses)."""
+    from lsps_tpu_torch.data.augment import normalize
+    from lsps_tpu_torch.data.camera import Camera
+    from lsps_tpu_torch.data.detector import HandDetector
+    from lsps_tpu_torch.data.synthetic import SyntheticImporter
+    from lsps_tpu_torch.serve.inference import PoseEstimator
+
+    cam = Camera.nyu()
+    cube = (CUBE_MM,) * 3
+    frames, coms = data["frames"], data["coms"]
+    methods = {"default": None, "cv2_nn": HandDetector.RESIZE_CV2_NN,
+               "cv2_linear": HandDetector.RESIZE_CV2_LINEAR,
+               "bilinear": HandDetector.RESIZE_BILINEAR}
+    crops, row = {}, {"frames": len(frames), "crop_ms": {}}
+    for name, method in methods.items():
+        out = []
+        t0 = time.perf_counter()
+        for f, c in zip(frames, coms):
+            hd = HandDetector(f, cam.fx, cam.fy)
+            if method is not None:
+                hd.resize_method = method
+            out.append(hd.crop_area_3d(c, cube))
+        row["crop_ms"][name] = (time.perf_counter() - t0) * 1e3 / len(out)
+        crops[name] = out
+    for (a, ma, _), (b, mb, _) in zip(crops["cv2_nn"], crops["default"]):
+        if not (np.array_equal(a, b) and np.array_equal(ma, mb)):
+            raise AssertionError("resize: RESIZE_CV2_NN crops differ from "
+                                 "the default path's")
+    moved = sum(not np.array_equal(a, b) for (a, _, _), (b, _, _) in
+                zip(crops["cv2_linear"], crops["default"]))
+    row["linear_crops_unlike_nearest"] = moved
+
+    imp = SyntheticImporter(n_frames=1)
+    hd = HandDetector(frames[0], cam.fx, cam.fy, importer=imp)
+    hd.resize_method = HandDetector.RESIZE_CV2_LINEAR
+    rs = np.random.RandomState(3)
+    recrop_ms, rotate_ms = [], []
+    for i in range(RESIZE_WARPS):
+        crop, M, com = crops["cv2_linear"][i]
+        crop = crop.astype(np.float32)
+        new_com = com + np.r_[rs.randn(2) * 4, rs.randn() * 15]
+        Mnew = hd.com_to_transform(new_com, cube, crop.shape)
+        t0 = time.perf_counter()
+        a = hd.recrop_hand(crop, Mnew, np.linalg.inv(M), crop.shape,
+                           background_value=0, nv_val=32000.0,
+                           thresh_z=True, com=new_com, size=cube)
+        t1 = time.perf_counter()
+        b = hd.rotate_hand(crop, cube, com, rs.uniform(-180, 180),
+                           data["joints"][i] - imp.joint_img_to_3d(com))[0]
+        t2 = time.perf_counter()
+        recrop_ms.append((t1 - t0) * 1e3)
+        rotate_ms.append((t2 - t1) * 1e3)
+        if a.shape != crop.shape or b.shape != crop.shape or \
+                not (np.isfinite(a).all() and np.isfinite(b).all()):
+            raise AssertionError("resize: a linear warp came out wrong")
+    row["recrop_hand_linear_ms"] = float(np.mean(recrop_ms))
+    row["rotate_hand_linear_ms"] = float(np.mean(rotate_ms))
+
+    norm = np.stack([normalize(c.astype(np.float32).copy(), com, cube)
+                     for c, _, com in crops["bilinear"]])[..., None]
+    with tf32_off(torch):
+        poses = PoseEstimator(hyp, sd, device=dev).predict_crops(norm)
+        torch.cuda.synchronize()
+    if poses.shape != (len(norm), hyp["vae"]["input_dim"]) or \
+            not bool(poses.isfinite().all()):
+        raise AssertionError(f"resize: bilinear crops' poses "
+                             f"{tuple(poses.shape)}, finite "
+                             f"{bool(poses.isfinite().all())}")
+    log(f"resize: ms per crop {json.dumps(row['crop_ms'])}, linear warps "
+        f"recrop {row['recrop_hand_linear_ms']:.2f} / rotate "
+        f"{row['rotate_hand_linear_ms']:.2f} ms a call (host clock); "
+        f"nearest crops bit-equal to the default; {moved} of "
+        f"{len(frames)} linear crops differ from nearest; bilinear crops' "
+        f"poses on the card finite")
+    return row
+
+
+def _common_blocks():
+    """(name, maker, input shape) of every common_net block at 64
+    channels."""
+    from lsps_tpu_torch.ops import common_net as C
+
+    b, c, h, w = COMMON_SHAPE
+    img, vec = (b, c, h, w), (b, c)
+    return [
+        ("LeakyReLUINSConv2d", lambda: C.LeakyReLUINSConv2d(c, c, 3, 1, 1),
+         img),
+        ("LeakyReLUINSConvTranspose2d",
+         lambda: C.LeakyReLUINSConvTranspose2d(c, c, 3, 2, 1, 1), img),
+        ("ReLUINSConv2d", lambda: C.ReLUINSConv2d(c, c, 3, 1, 1), img),
+        ("ReLUINSConvTranspose2d",
+         lambda: C.ReLUINSConvTranspose2d(c, c, 3, 2, 1, 1), img),
+        ("LeakyReLUBNConv2d", lambda: C.LeakyReLUBNConv2d(c, c, 3, 1, 1),
+         img),
+        ("LeakyReLUBNConvTranspose2d",
+         lambda: C.LeakyReLUBNConvTranspose2d(c, c, 3, 2, 1, 1), img),
+        ("LeakyReLUBNNSConv2d", lambda: C.LeakyReLUBNNSConv2d(c, c, 3, 1, 1),
+         img),
+        ("LeakyReLUBNNSConvTranspose2d",
+         lambda: C.LeakyReLUBNNSConvTranspose2d(c, c, 3, 1, 1), img),
+        ("LeakyReLUResBlock", lambda: C.LeakyReLUResBlock(c, c, 3, 1, 1),
+         img),
+        ("LeakyReLUBNNSResBlock",
+         lambda: C.LeakyReLUBNNSResBlock(c, c, 3, 1, 1), img),
+        ("Bias2d", lambda: C.Bias2d(c), img),
+        ("BatchNorm", lambda: C.BatchNorm(c), img),
+        ("GaussianSmoother", lambda: C.GaussianSmoother(5), img),
+        ("GaussianVAE2DHead", lambda: C.GaussianVAE2DHead(c, c, 3, 1, 1),
+         img),
+        ("LeakyReLUBNLinear", lambda: C.LeakyReLUBNLinear(c, c), vec),
+        ("GaussianVAEHead", lambda: C.GaussianVAEHead(c, c), vec),
+    ]
+
+
+@functools.lru_cache(maxsize=2)
+def _loss_weight_host(shape, seed):
+    """1 + N(0, 0.5) of ``shape`` from a numpy seed, float32, made once."""
+    w = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    return w * np.float32(0.5) + np.float32(1.0)
+
+
+@functools.lru_cache(maxsize=4)
+def _loss_weight(torch, shape, seed, device, dtype):
+    """``_fwd_bwd``'s weight of an output on ``device`` in ``dtype``, made
+    once (outside the timed step)."""
+    return torch.from_numpy(_loss_weight_host(shape, seed)).to(device,
+                                                               dtype)
+
+
+def _fwd_bwd(torch, module, x):
+    """Outputs and gradients (input first, then the parameters by name)
+    of each output's mean against a fixed seeded weight of its shape,
+    1 + N(0, 0.5): a loss that no norm makes constant (as the mean square
+    of a normalized output would be), and whose gradient sums over a
+    batch's 500k pixels do not cancel to rounding size (as a zero-mean
+    weight's would)."""
+    x = x.detach().clone().requires_grad_(True)
+    out = module(x)
+    out = out if isinstance(out, tuple) else (out,)
+    loss = sum((o * _loss_weight(torch, tuple(o.shape), i, o.device,
+                                 o.dtype)).mean()
+               for i, o in enumerate(out))
+    names = [k for k, _ in module.named_parameters()]
+    grads = torch.autograd.grad(loss, [x] + list(module.parameters()))
+    return [o.detach() for o in out], dict(zip(["input"] + names, grads))
+
+
+def _norm_fed_biases(module):
+    """Names of the biases that feed an InstanceNorm or a BatchNorm: their
+    gradient is zero in exact arithmetic (the norm takes the constant
+    away), so what the card and the CPU give is rounding noise."""
+    from torch import nn
+
+    from lsps_tpu_torch.ops import common_net as C
+    from lsps_tpu_torch.ops import layers as L
+
+    out = set()
+    if isinstance(module, nn.Sequential):
+        kids = list(module)
+        for i, (a, b) in enumerate(zip(kids, kids[1:])):
+            if getattr(a, "bias", None) is not None and isinstance(
+                    b, (L.InstanceNorm, C.BatchNorm)):
+                out.add(f"{i}.bias")
+    return out
+
+
+def _rel(torch, a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)),
+                                                1e-30))
+
+
+def phase_common_net(torch, dev):
+    """Every common_net block forward and backward at 64 channels on
+    128 x 128, batch 8, TF32 off, against the CPU in float64: the card in
+    float64 within ``COMMON_F64_RTOL`` (outputs and every gradient,
+    relative Frobenius: the card computes the CPU's function), the card in
+    float32 within ``COMMON_RTOL``, or ``COMMON_NORM_GRAD_RTOL`` for the
+    gradients of a block with a norm (float32 keeps ~1e-3 of a gradient
+    whose plane or channel mean the norm removes: 6.5e-4 and 9.3e-4 on the
+    card for the transposed convs into IN at these shapes); the
+    biases that feed a norm, zero in exact arithmetic, are left out and
+    their largest value reported.  Card ms of each float32 step; the
+    im2col stem against the conv on the card."""
+    import copy
+
+    from lsps_tpu_torch.ops import common_net as C
+    from lsps_tpu_torch.ops import layers as L
+
+    rows, worst, worst64 = {}, 0.0, 0.0
+    with tf32_off(torch):
+        for k, (name, make, shape) in enumerate(_common_blocks()):
+            cpu = make()
+            L.reset_parameters(cpu, torch.Generator().manual_seed(k))
+            x = torch.from_numpy(np.random.RandomState(k).randn(*shape)
+                                 .astype(np.float32))
+            skip = _norm_fed_biases(cpu)
+            normed = any(isinstance(m, (L.InstanceNorm, C.BatchNorm))
+                         for m in cpu.modules())
+            ref_o, ref_g = _fwd_bwd(torch, copy.deepcopy(cpu).double(),
+                                    x.double())
+            d64_o, d64_g = _fwd_bwd(torch, copy.deepcopy(cpu).to(
+                dev, torch.float64), x.to(dev, torch.float64))
+            card = cpu.to(dev)
+            xd = x.to(dev)
+            _fwd_bwd(torch, card, xd)                       # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_d, g_d = _fwd_bwd(torch, card, xd)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+
+            def gaps(o, g):
+                e = {f"out{i}": _rel(torch, a, b)
+                     for i, (a, b) in enumerate(zip(o, ref_o))}
+                e.update({n: _rel(torch, g[n], ref_g[n]) for n in ref_g
+                          if n not in skip})
+                return e
+
+            e64, e32 = gaps(d64_o, d64_g), gaps(out_d, g_d)
+            grad_tol = COMMON_NORM_GRAD_RTOL if normed else COMMON_RTOL
+            bad = [n for n, e in e32.items()
+                   if e > (COMMON_RTOL if n.startswith("out") else grad_tol)]
+            rows[name] = {"card_ms": ms,
+                          "f64_max_rel": max(e64.values()),
+                          "f32_out_rel": max(e for n, e in e32.items()
+                                             if n.startswith("out")),
+                          "f32_grad_rel": max(e for n, e in e32.items()
+                                              if not n.startswith("out")),
+                          "norm_fed_bias_grad_abs": {
+                              n: float(ref_g[n].abs().max()) for n in skip}}
+            worst = max(worst, max(e32.values()))
+            worst64 = max(worst64, max(e64.values()))
+            if bad or max(e64.values()) > COMMON_F64_RTOL:
+                raise AssertionError(f"common_net {name}: against CPU "
+                                     f"float64, card float64 {e64}, card "
+                                     f"float32 {e32}")
+        stem = L.Conv2d(1, 64, 7, 2, 3).to(dev)
+        x = torch.from_numpy(np.random.RandomState(99).uniform(
+            -1, 1, (COMMON_SHAPE[0], 1, 128, 128)).astype(np.float32)).to(dev)
+        prev = L.set_im2col_stem(False)
+        try:
+            conv_out, conv_g = _fwd_bwd(torch, stem, x)
+            L.set_im2col_stem(True)
+            gemm_out, gemm_g = _fwd_bwd(torch, stem, x)
+        finally:
+            L.set_im2col_stem(prev)
+        stem_err = max([_rel(torch, gemm_out[0], conv_out[0])]
+                       + [_rel(torch, gemm_g[k], conv_g[k])
+                          for k in conv_g])
+    if stem_err > COMMON_RTOL:
+        raise AssertionError(f"im2col stem vs conv on the card: {stem_err}")
+    log(f"common_net: {len(rows)} blocks at {COMMON_SHAPE}, against the "
+        f"CPU in float64: card float64 worst {worst64:.3g} (tol "
+        f"{COMMON_F64_RTOL}), card float32 worst {worst:.3g} (tol "
+        f"{COMMON_RTOL}, {COMMON_NORM_GRAD_RTOL} for gradients through a "
+        f"norm); im2col stem vs "
+        f"conv {stem_err:.3g}; card ms (float32 forward + backward) "
+        + json.dumps({k: round(v["card_ms"], 3) for k, v in rows.items()}))
+    return {"blocks": rows, "worst_f32_rel": worst, "worst_f64_rel": worst64,
+            "im2col_stem_rel": stem_err, "shape": COMMON_SHAPE}
 
 
 # ---------------------------------------------------------------------------
@@ -3476,6 +3869,11 @@ DP_CUTS = {
 }
 DP_EVAL_RTOL = 1e-3    # the eval's mean error, --mesh-data 2 against 0
 DP_TIMEOUT_S = 420
+TP_MODEL = 2           # the model axis of the tensor-parallel part
+TP_BATCH = 32          # regress_b's global batch there
+TP_MIN_OUT_CH = 512    # the JAX default: SharedDis' three wide convs split
+TP_RTOL = 1e-4         # TP vs the replicated module, TF32 off
+TP_TIMED = 10          # forwards timed, TP and replicated in turns
 
 
 def dp_config(cli_cfg, tmp):
@@ -3534,6 +3932,103 @@ def allreduce_ms(torch, mesh, trainer, reps=5):
     return (time.perf_counter() - t0) * 1e3 / reps, mb
 
 
+def tp_part(torch, dev):
+    """Tensor parallelism on the ranks of ``dp_rank``: ``SharedDis`` at
+    nnyu widths (seeded alike on every rank) split over a model axis of
+    ``TP_MODEL`` (``make_mesh(world // TP_MODEL, TP_MODEL)``, the data
+    rows taking their rows of a batch of ``TP_BATCH``), ``regress_b``
+    against the replicated module on the same rows with TF32 off and
+    cuDNN deterministic: the forward within ``TP_RTOL`` of the largest
+    output, every gradient (the rank's block of a split one) within
+    ``TP_RTOL`` relative (Frobenius), the gathered state dict bit for
+    bit; each rank's parameter bytes beside the replicated module's, and
+    ms per forward of both, timed in turns."""
+    import copy
+
+    import torch.distributed as dist
+
+    from lsps_tpu_torch.config import load_config
+    from lsps_tpu_torch.models import build_model
+    from lsps_tpu_torch.ops import layers as L
+    from lsps_tpu_torch.parallel import (DataMesh, gather_state_dict,
+                                         make_mesh, shard_state_tp)
+
+    world = DataMesh.from_group(dev)
+    hyp = load_config(str(Path(__file__).resolve().parent / "exps"
+                          / "nnyu.yaml")).hyperparameters
+    mesh = make_mesh(dist.get_world_size() // TP_MODEL, TP_MODEL,
+                     device=dev)
+    with tf32_off(torch, deterministic=True):
+        ref = build_model(hyp["dis"])
+        L.reset_parameters(ref, torch.Generator().manual_seed(7))
+        ref = ref.to(dev)
+        tp = copy.deepcopy(ref)
+        dims = shard_state_tp(mesh, tp, TP_MIN_OUT_CH)
+        full = gather_state_dict(mesh, tp)
+        same = all(torch.equal(full[k], v)
+                   for k, v in ref.state_dict().items())
+        x = torch.from_numpy(np.random.RandomState(11).uniform(
+            -1, 1, (TP_BATCH, 128, 128, 1)).astype(np.float32))
+        x = mesh.data.local_rows(x).to(dev)
+        outs, grads = [], []
+        for m in (ref, tp):
+            y = m.regress_b(x)[0]
+            grads.append(dict(zip(
+                [k for k, _ in m.named_parameters()],
+                torch.autograd.grad(y.square().mean(),
+                                    list(m.parameters()),
+                                    allow_unused=True))))
+            outs.append(y.detach())
+        fwd = float((outs[1] - outs[0]).abs().max()
+                    / outs[0].abs().max())
+        grad_rel, split_rel = 0.0, 0.0
+        for k, g in grads[1].items():
+            w = grads[0][k]
+            if w is None:
+                if g is not None:
+                    raise AssertionError(f"tp: {k} has a gradient")
+                continue
+            if dims[k] is not None:
+                size = w.shape[dims[k]] // mesh.n_model
+                w = w.narrow(dims[k], mesh.model_index * size, size)
+            rel = float(torch.linalg.norm(g - w) / torch.linalg.norm(w))
+            grad_rel = max(grad_rel, rel)
+            if dims[k] is not None:
+                split_rel = max(split_rel, rel)
+        split = [k for k, d in dims.items() if d is not None]
+        nbytes = {k: p.numel() * p.element_size()
+                  for k, p in tp.named_parameters()}
+        ref_bytes = {k: p.numel() * p.element_size()
+                     for k, p in ref.named_parameters()}
+        times = {"tp": [], "replicated": []}
+        with torch.no_grad():
+            for _ in range(2):
+                tp.regress_b(x), ref.regress_b(x)
+            for _ in range(TP_TIMED):
+                for name, m in (("tp", tp), ("replicated", ref)):
+                    world.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m.regress_b(x)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+    row = {"mesh": mesh.shape, "data_index": mesh.data_index,
+           "model_index": mesh.model_index, "split": split,
+           "state_bit_equal": same, "forward_rel": fwd,
+           "grad_rel": grad_rel, "split_grad_rel": split_rel,
+           "split_bytes": sum(nbytes[k] for k in split),
+           "split_bytes_replicated": sum(ref_bytes[k] for k in split),
+           "param_bytes": sum(nbytes.values()),
+           "param_bytes_replicated": sum(ref_bytes.values()),
+           "ms_per_forward": {k: float(np.median(v))
+                              for k, v in times.items()},
+           "local_batch": int(x.shape[0])}
+    if not same or fwd > TP_RTOL or grad_rel > TP_RTOL or \
+            len(split) != 6:
+        raise AssertionError(f"tp rank {mesh.rank}: {row}")
+    return row
+
+
 def dp_rank(spec_path):
     """One rank of ``phase_dp``, started by ``torch.distributed.run``: the
     trainer at nnyu widths (TF32 off) for ``DP_STEPS`` raw steps at the
@@ -3583,6 +4078,10 @@ def dp_rank(spec_path):
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+        if spec.get("tp"):
+            out["tp"] = tp_part(torch, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
         out["cli"] = []
         for argv in spec["cli"]:
             buf = io.StringIO()
@@ -3702,6 +4201,24 @@ def dp_against_one_process(torch, dev, hyp, train_sd, ranks, backend):
     return by_step, ref
 
 
+def tp_summary(ranks):
+    """The ranks' tensor-parallel rows, worst gaps first."""
+    rows = [r["tp"] for r in ranks]
+    return {"mesh": rows[0]["mesh"], "split": rows[0]["split"],
+            "state_bit_equal": all(t["state_bit_equal"] for t in rows),
+            "forward_rel": max(t["forward_rel"] for t in rows),
+            "grad_rel": max(t["grad_rel"] for t in rows),
+            "split_grad_rel": max(t["split_grad_rel"] for t in rows),
+            "split_mb": [t["split_bytes"] / 1e6 for t in rows],
+            "split_mb_replicated": rows[0]["split_bytes_replicated"] / 1e6,
+            "param_mb": [t["param_bytes"] / 1e6 for t in rows],
+            "param_mb_replicated": rows[0]["param_bytes_replicated"] / 1e6,
+            "ms": [t["ms_per_forward"]["tp"] for t in rows],
+            "ms_replicated": [t["ms_per_forward"]["replicated"]
+                              for t in rows],
+            "local_batch": rows[0]["local_batch"]}
+
+
 def phase_dp_cards(torch, dev):
     """``python3 chip_smoke.py --dp-cards``: part (a) of ``phase_dp`` with
     one rank on each card of the machine (NCCL), against one process on
@@ -3717,8 +4234,8 @@ def phase_dp_cards(torch, dev):
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     phase_build()
-    (out_dir / "spec.json").write_text(json.dumps({"out": str(out_dir),
-                                                   "cli": []}))
+    (out_dir / "spec.json").write_text(json.dumps({
+        "out": str(out_dir), "cli": [], "tp": n % TP_MODEL == 0}))
     t0 = time.perf_counter()
     launch_ranks(out_dir / "spec.json", out_dir, world=n)
     ranks_s = time.perf_counter() - t0
@@ -3741,6 +4258,8 @@ def phase_dp_cards(torch, dev):
            "launches_per_rank_step": [
                {k: v / DP_STEPS for k, v in r["launches"].items()}
                for r in ranks]}
+    if n % TP_MODEL == 0:
+        row["tensor_parallel"] = tp_summary(ranks)
     log("data-parallel over cards " + json.dumps(row))
     shutil.rmtree(out_dir)
     return 0
@@ -3785,7 +4304,7 @@ def phase_dp(torch, dev, hyp, train_sd, serve_sd, cli_cfg, cli_prefix,
               ["--mode", "estimate3", "--frac", "0.5"])
         return a + (["--mesh-data", str(DP_WORLD)] if mesh else [])
 
-    spec = {"out": str(out_dir), "cli": [
+    spec = {"out": str(out_dir), "tp": True, "cli": [
         argv("pretrain", out_dir / "mesh" / "pre", "pre_mesh", True),
         argv("estimate3", cli_prefix, "est_mesh", True)]}
     (out_dir / "spec.json").write_text(json.dumps(spec))
@@ -3904,8 +4423,17 @@ def phase_dp(torch, dev, hyp, train_sd, serve_sd, cli_cfg, cli_prefix,
         "cli_single_wall_s": [pre0["wall_s"], est0["wall_s"]],
         "serve_two_replicas_mm": serve_err,
         "launches_per_rank_step": per_step,
+        "tensor_parallel": tp_summary(ranks),
     }
     row["phase_s"] = time.perf_counter() - t_phase
+    tp = row["tensor_parallel"]
+    log(f"tensor parallel ({card}; {DP_WORLD} gloo ranks SHARE ONE CARD, "
+        f"not a scaling figure): SharedDis nnyu regress_b, mesh "
+        f"{tp['mesh']}, {len(tp['split'])} split tensors; forward "
+        f"{tp['forward_rel']:.3g}, gradients {tp['grad_rel']:.3g} relative "
+        f"(tol {TP_RTOL}); split conv MB per rank {tp['split_mb']} of "
+        f"{tp['split_mb_replicated']:.2f}; ms per forward {tp['ms']} "
+        f"(replicated {tp['ms_replicated']})")
     log(f"data-parallel ({card}; {DP_WORLD} ranks SHARE ONE CARD, not a "
         f"scaling figure): ranks vs one process at global batch {DP_BATCH}"
         f" losses <= {worst:.3g} relative (tol {STEP_LOSS_RTOL}), "
@@ -3976,8 +4504,15 @@ def main() -> int:
     com_gap = phase_com(torch, dev, cam)
     timing = phase_timing(torch, dev, hyp, sd)
     mark("serve, com, serve timing")
-    track_row, track_launches = phase_track(torch, dev, hyp, sd)
+    track_row, track_launches, track_data = phase_track(torch, dev, hyp, sd)
     mark("track")
+    plots_row = phase_plots(torch, dev, track_data)
+    mark("plots")
+    resize_row = phase_resize(torch, dev, hyp, sd, track_data)
+    del track_data
+    mark("resize")
+    common_row = phase_common_net(torch, dev)
+    mark("common_net")
     norm_errs = phase_norm(torch, dev)
     log("norm max |kernel - plain|: float32 "
         f"{norm_errs[torch.float32]}, bfloat16 {norm_errs[torch.bfloat16]}")
@@ -4041,6 +4576,12 @@ def main() -> int:
     log("data-parallel phase " + json.dumps(dp_row))
     log("tracking phase " + json.dumps(
         {**track_row, "card": gpu_name_and_power()}))
+    log("plots phase " + json.dumps(
+        {**plots_row, "card": gpu_name_and_power()}))
+    log("resize phase " + json.dumps(
+        {**resize_row, "card": gpu_name_and_power()}))
+    log("common_net phase " + json.dumps(
+        {**common_row, "card": gpu_name_and_power()}))
     log("training path checks " + json.dumps(
         {"raw": raw_checks, "bf16": bf16_checks, "remat": remat_checks,
          "scan_ckpt": scan_checks, "launches_by_path": path_launches,
@@ -4089,7 +4630,8 @@ def main() -> int:
             "artifact daemon": export_launches["artifact daemon"],
             f"sharded serving, {DP_WORLD} replicas on the card (1 call)":
                 dp_crop_launches,
-            **{f"host tracking: {k}": v for k, v in track_launches.items()}},
+            **{f"host tracking: {k}": v for k, v in track_launches.items()},
+            "plots: the card's crop of frame 0": plots_row["crop_launches"]},
         # ms per call of the exported programs beside the live call
         "exported_ms_per_call": {
             k: {"ms": r["ms_per_call"], "live_ms": r["live_ms_per_call"],

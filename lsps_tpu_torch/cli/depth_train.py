@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from lsps_tpu_torch.cli import common as C
+from lsps_tpu_torch.data.augment import denormalize
 from lsps_tpu_torch.data.loader import get_data_loader
 from lsps_tpu_torch.eval.handpose_evaluation import NYU_RESTRICTED_EVAL
 from lsps_tpu_torch.utils import viz
@@ -542,8 +543,17 @@ def evaluate_estimation(trainer, test_loader, di_b, Evaluation, color_idx,
         else trainer.dis.regress_b
     dtype = next(trainer.dis.parameters()).dtype
 
+    first_dpt_mm = first_trans = None
     for tit, batch in enumerate(iter(test_loader)):
         imgs, labels, com, trans, cube = batch[:5]
+        if tit == 0 and main_rank:
+            # the first frame's metric-mm depth crop for the 3D point-cloud
+            # artifact (the inverse of dataset_hand2.py:27-31; background
+            # -> 0, which depth_to_pcl drops)
+            d = np.asarray(imgs[0, 0], np.float32)
+            mm = denormalize(d, np.asarray(com[0]), np.asarray(cube[0]))
+            mm[d >= 0.99] = 0.0
+            first_dpt_mm, first_trans = mm, np.asarray(trans[0])
         x = np.transpose(imgs, (0, 2, 3, 1))
         if runner is not None:
             (x,), n_valid = runner.place_padded(x)
@@ -589,10 +599,16 @@ def evaluate_estimation(trainer, test_loader, di_b, Evaluation, color_idx,
     hpe = Evaluation(np.array(gt3d), np.array(joints))
     mean_err = hpe.getMeanError()
     over_40 = 100.0 * hpe.getNumFramesWithinMaxDist(40) / len(gt3d)
-    # the JAX package also plots the first test frame's point cloud and
-    # skeleton here (plotResult3D, matplotlib)
-    print("3D plot skipped: plotResult3D is not ported (it needs "
-          "matplotlib; ROADMAP.md)")
+    # the first test frame's point cloud and skeletons (reference
+    # plotResult3D, handpose_evaluation.py:488-620)
+    if first_dpt_mm is not None:
+        hpe.subfolder = image_dir
+        try:
+            hpe.plotResult3D(first_dpt_mm, first_trans, gt3d[0], joints[0],
+                             filename="_test3d", camera=di_b.camera,
+                             niceColors=True)
+        except Exception as e:
+            print(f"3D plot skipped: {e}")
     return mean_err, over_40
 
 

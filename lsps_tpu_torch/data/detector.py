@@ -31,6 +31,26 @@ The cv2 calls of that path are numpy here and pick the pixels cv2 picks:
 * ``cv2.getRotationMatrix2D`` scales the angle by ``CV_PI / 180`` in
   double, as :func:`rotation_matrix_2d` does.
 
+The linear resizes and warps (``resize_method`` other than
+``RESIZE_CV2_NN``) are bit-equal too, found by probing cv2 5:
+
+* ``cv2.resize(..., INTER_LINEAR)`` on float32 maps destination index
+  ``d`` to ``(d + 0.5) * (src / dst) - 0.5`` in double, floors it, clamps
+  at both edges (weight 0 on the far tap), casts the fraction to float32,
+  and interpolates columns then rows, each as ``fma(b - a, t, a)`` in
+  float32 (:func:`resize_linear`).
+* ``cv2.warpAffine`` / ``cv2.warpPerspective`` with ``INTER_LINEAR``
+  compute the source coordinate as the nearest warps do in their vector
+  blocks of 16 columns, and as ``fma(m0, x, m1 * y) + m2`` in the columns
+  past the last whole block; then ``floor``, the fraction in float32, the
+  same two-level ``fma`` interpolation, and each corner outside the
+  source taking the border value (:func:`warp_affine_linear`,
+  :func:`warp_perspective_linear`).  Held bit for bit at widths 128, 127,
+  131 and 45.
+* ``bilinear_resize`` (``RESIZE_BILINEAR``) is the JAX package's
+  vectorized copy of the reference's ND-aware loop: the same float64 grid,
+  the same cascade of weights, the same float32 products and sums.
+
 The closest-object detector and the tracker (``detect``,
 ``refine_com_iterative``, ``track`` with its ``refine_net`` hook,
 ``estimate_hand_size``) find contours with
@@ -38,9 +58,6 @@ The closest-object detector and the tracker (``detect``,
 order, so the first contour over 200 pixels of area, and every CoM that
 follows from it, is the JAX package's to the bit.
 
-Not ported here (``ROADMAP.md``): the bilinear resizes
-(``RESIZE_BILINEAR``, ``RESIZE_CV2_LINEAR``), which no dataset of the JAX
-package selects.
 """
 
 from __future__ import annotations
@@ -163,8 +180,114 @@ def warp_perspective_nearest(src, M, dsize, border=0.0) -> np.ndarray:
         return _gather_nearest(src, x / w, y / w, border)
 
 
+# cv2 5's warp kernels compute this many columns per vector block; the
+# columns past the last whole block take the scalar formula
+_WARP_BLOCK = 16
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``fma(a, b, c)``: the exact float64 product and sum of
+    float32 operands, rounded once."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _lerp32(a, b, t) -> np.ndarray:
+    """``fma(b - a, t, a)`` in float32."""
+    return _fma32(b - a, t, a)
+
+
+def _linear_taps(src_size: int, dst_size: int):
+    """cv2's INTER_LINEAR taps along one axis: the first source index, the
+    second (clamped), and the float32 weight of the second."""
+    fd = (np.arange(dst_size, dtype=np.float64) + 0.5) * (
+        float(src_size) / float(dst_size)) - 0.5
+    s = np.floor(fd)
+    t = (fd - s).astype(np.float32)
+    s = s.astype(np.int64)
+    edge = (s < 0) | (s >= src_size - 1)
+    t[edge] = 0.0
+    s = np.clip(s, 0, src_size - 1)
+    return s, np.minimum(s + 1, src_size - 1), t
+
+
+def resize_linear(src, dsize) -> np.ndarray:
+    """``cv2.resize(src, dsize, interpolation=cv2.INTER_LINEAR)`` of a
+    float32 image with ``dsize = (width, height)``, both sides at least 2
+    on either end (cv2 takes another path for a single row or column)."""
+    src = np.asarray(src)
+    w, h = int(dsize[0]), int(dsize[1])
+    if src.dtype != np.float32:
+        raise ValueError(f"linear resize takes float32, not {src.dtype}")
+    if min(w, h, src.shape[0], src.shape[1]) < 2:
+        raise ValueError(f"cannot resize {src.shape[:2]} to {(w, h)} "
+                         "linearly: a side below 2")
+    x0, x1, tx = _linear_taps(src.shape[1], w)
+    y0, y1, ty = _linear_taps(src.shape[0], h)
+    rows = _lerp32(src[:, x0], src[:, x1], tx)
+    return _lerp32(rows[y0], rows[y1], ty[:, None])
+
+
+def _linear_coords(inv, dsize):
+    """Each row of the float32 inverse ``inv`` applied to every
+    destination pixel as cv2's linear warps do: the nearest warps' formula
+    in whole vector blocks, ``fma(m0, x, m1 * y) + m2`` past them."""
+    coords = _row_coords(inv, dsize)
+    w, h = int(dsize[0]), int(dsize[1])
+    tail = w // _WARP_BLOCK * _WARP_BLOCK
+    if tail < w:
+        ys, xs = np.mgrid[0:h, tail:w].astype(np.float32)
+        for c, (m0, m1, m2) in zip(coords, inv):
+            c[:, tail:] = _fma32(m0, xs, m1 * ys) + m2
+    return coords
+
+
+def _gather_linear(src, sx, sy, border):
+    src = np.asarray(src, np.float32)
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(sx), np.floor(sy)
+        tx = (sx - fx).astype(np.float32)
+        ty = (sy - fy).astype(np.float32)
+        # a non-finite or far coordinate reads the border at all corners
+        far = ~(np.abs(fx) < 2 ** 24) | ~(np.abs(fy) < 2 ** 24)
+    ix = np.where(far, -2, fx).astype(np.int64)
+    iy = np.where(far, -2, fy).astype(np.int64)
+    sh, sw = src.shape[:2]
+
+    def corner(dy, dx):
+        x, y = ix + dx, iy + dy
+        ok = (x >= 0) & (x < sw) & (y >= 0) & (y < sh)
+        out = np.full(sx.shape, border, np.float32)
+        out[ok] = src[y[ok], x[ok]]
+        return out
+
+    top = _lerp32(corner(0, 0), corner(0, 1), tx)
+    bottom = _lerp32(corner(1, 0), corner(1, 1), tx)
+    return _lerp32(top, bottom, ty)
+
+
+def warp_affine_linear(src, M, dsize, border=0.0) -> np.ndarray:
+    """``cv2.warpAffine(src, M, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border)`` of a float32 image."""
+    inv = invert_affine(M).astype(np.float32)
+    sx, sy = _linear_coords(inv, dsize)
+    return _gather_linear(src, sx, sy, border)
+
+
+def warp_perspective_linear(src, M, dsize, border=0.0) -> np.ndarray:
+    """``cv2.warpPerspective(src, M, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border)`` of a float32 image."""
+    inv = invert_3x3(M).astype(np.float32)
+    x, y, w = _linear_coords(inv, dsize)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return _gather_linear(src, x / w, y / w, border)
+
+
 class HandDetector:
     """Crop a hand around its center of mass."""
+
+    RESIZE_BILINEAR = 0
+    RESIZE_CV2_NN = 1
+    RESIZE_CV2_LINEAR = 2
 
     def __init__(self, dpt, fx, fy, importer=None, refine_net=None):
         dpt = np.asarray(dpt)
@@ -178,6 +301,7 @@ class HandDetector:
         self.fy = fy
         self.importer = importer      # provides joint projection
         self.refine_net = refine_net  # optional CoM refinement hook
+        self.resize_method = self.RESIZE_CV2_NN
 
     @staticmethod
     def detection_mode_to_string(com, refine_net) -> str:
@@ -290,9 +414,67 @@ class HandDetector:
         return cropped
 
     def resize_crop(self, crop, sz) -> np.ndarray:
-        """Resize the crop as the datasets do, nearest-neighbour
-        (handdetector.py:338-353)."""
-        return resize_nearest(crop, sz)
+        """Resize with the configured method (handdetector.py:338-353)."""
+        if self.resize_method == self.RESIZE_CV2_NN:
+            return resize_nearest(crop, sz)
+        if self.resize_method == self.RESIZE_CV2_LINEAR:
+            return resize_linear(crop, sz)
+        if self.resize_method == self.RESIZE_BILINEAR:
+            return self.bilinear_resize(crop, sz, self.get_nd_value())
+        raise NotImplementedError("Unknown resize method")
+
+    @staticmethod
+    def bilinear_resize(src, dsize, nd_value) -> np.ndarray:
+        """Bilinear resize that treats ``nd_value`` pixels as missing
+        (handdetector.py:134-204): per-corner weights zeroed for missing
+        corners and the rest renormalized; more than two missing corners
+        give ``nd_value``.  Offsets and weights in float64 (the reference's
+        Python floats), each weighted corner and the running sum in
+        float32, as the reference's scalar products round."""
+        src = np.asarray(src, np.float32)
+        out_h, out_w = dsize[1], dsize[0]
+        x_ratio = float(src.shape[1] - 1) / out_w
+        y_ratio = float(src.shape[0] - 1) / out_h
+        rows = np.arange(out_h, dtype=np.float64)[:, None]
+        cols = np.arange(out_w, dtype=np.float64)[None, :]
+        y = (rows * y_ratio).astype(np.int64)
+        x = (cols * x_ratio).astype(np.int64)
+        y_diff = rows * y_ratio - y
+        x_diff = cols * x_ratio - x
+        c00 = src[y, x]
+        c01 = src[y, x + 1]
+        c10 = src[y + 1, x]
+        c11 = src[y + 1, x + 1]
+        zero = np.zeros(c00.shape)
+        w00 = (1 - y_diff) * (1 - x_diff) + zero
+        w01 = (1 - y_diff) * x_diff + zero
+        w10 = y_diff * (1 - x_diff) + zero
+        w11 = y_diff * x_diff + zero
+        nd00, nd01 = c00 == nd_value, c01 == nd_value
+        nd10, nd11 = c10 == nd_value, c11 == nd_value
+        n_nd = (nd00.astype(int) + nd01.astype(int) + nd10.astype(int)
+                + nd11.astype(int))
+        # the reference's cascade of weight redistribution
+        # (handdetector.py:173-186)
+        w00 = np.where(nd00, 0.0, w00)
+        w01 = np.where(nd00, 1.0 - w11 - w10, w01)
+        w01 = np.where(nd01, 0.0, w01)
+        w00 = np.where(nd01 & (w00 != 0.0), 1.0 - w11 - w10, w00)
+        w10 = np.where(nd10, 0.0, w10)
+        w11 = np.where(nd10, 1.0 - w01 - w00, w11)
+        w11 = np.where(nd11, 0.0, w11)
+        w10 = np.where(nd11 & (w10 != 0.0), 1.0 - w01 - w00, w10)
+        # the normalizer summed as the reference sums it, and each weight
+        # scaled before the products (handdetector.py:190-203)
+        total = w11 + w10 + w01 + w00
+        all_zero = total == 0.0
+        scale = np.where(all_zero, 1.0, 1.0 / np.where(all_zero, 1.0, total))
+        val = (w00 * scale).astype(np.float32) * c00
+        val = val + (w01 * scale).astype(np.float32) * c01
+        val = val + (w10 * scale).astype(np.float32) * c10
+        val = val + (w11 * scale).astype(np.float32) * c11
+        out = np.where(all_zero | (n_nd > 2), nd_value, val)
+        return out.astype(np.float32)
 
     # ------------------------------------------------------------------
     def crop_area_3d(self, com=None, size=(250, 250, 250), dsize=(128, 128),
@@ -519,8 +701,11 @@ class HandDetector:
                     nv_val=0.0, thresh_z=True, com=None,
                     size=(250, 250, 250)) -> np.ndarray:
         """Re-crop by warping through M @ Mnew (handdetector.py:786-807)."""
-        warped = warp_perspective_nearest(crop, np.dot(M, Mnew), target_size,
-                                          border=float(background_value))
+        warp = (warp_perspective_nearest
+                if self.resize_method == self.RESIZE_CV2_NN
+                else warp_perspective_linear)
+        warped = warp(crop, np.dot(M, Mnew), target_size,
+                      border=float(background_value))
         warped[np.isclose(warped, nv_val)] = background_value
         if thresh_z:
             assert com is not None
@@ -557,8 +742,10 @@ class HandDetector:
         rot = np.mod(rot, 360)
         M = rotation_matrix_2d((dpt.shape[1] // 2, dpt.shape[0] // 2), -rot,
                                1)
-        new_dpt = warp_affine_nearest(dpt, M, (dpt.shape[1], dpt.shape[0]),
-                                      border=pad_value)
+        warp = (warp_affine_nearest
+                if self.resize_method == self.RESIZE_CV2_NN
+                else warp_affine_linear)
+        new_dpt = warp(dpt, M, (dpt.shape[1], dpt.shape[0]), border=pad_value)
         com3d = self.importer.joint_img_to_3d(np.asarray(com))
         joint_2d = self.importer.joint_3d_to_img(joints_3d + com3d)
         data_2d = rotate_points_2d(joint_2d, np.asarray(com[:2], np.float32),

@@ -7,6 +7,12 @@ reference's distributions: N(0, 0.02) conv kernels, PyTorch's uniform
 bound 1/sqrt(fan_in) for linear weights and for every bias.  Each
 ``reset_parameters`` takes an optional ``torch.Generator``.
 
+``set_im2col_stem`` turns on the JAX package's opt-in im2col stem: a
+one-input-channel conv runs as ``F.unfold`` and one product instead of a
+conv (the same math; ``LSPS_IM2COL_STEM=1`` is the default when the switch
+is left ``None``).  The rest of the reference's block library is in
+``ops/common_net.py``.
+
 In bfloat16 the layers round where the JAX package's do: a conv (or
 transposed conv) is rounded to bfloat16 before its bias is added in
 bfloat16, and LeakyReLU multiplies by the slope rounded to bfloat16 (a
@@ -16,6 +22,7 @@ weakly typed Python float there).  Other dtypes take PyTorch's own ops.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -32,27 +39,69 @@ def _uniform_(t: torch.Tensor, fan_in: int, generator=None) -> None:
     nn.init.uniform_(t, -bound, bound, generator=generator)
 
 
-def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """NCHW ``y`` plus a per-channel bias, in y's dtype."""
-    return y + bias[:, None, None]
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """NCHW ``y`` plus a per-channel bias (if any), in y's dtype."""
+    return y if bias is None else y + bias[:, None, None]
+
+
+_IM2COL_STEM: Optional[bool] = None   # None: LSPS_IM2COL_STEM decides
+
+
+def set_im2col_stem(value: Optional[bool]) -> Optional[bool]:
+    """Force the im2col stem on (True) or off (False), or leave it to
+    ``LSPS_IM2COL_STEM`` (None); returns the previous setting."""
+    global _IM2COL_STEM
+    previous, _IM2COL_STEM = _IM2COL_STEM, value
+    return previous
+
+
+def im2col_stem_enabled() -> bool:
+    if _IM2COL_STEM is not None:
+        return bool(_IM2COL_STEM)
+    return os.environ.get("LSPS_IM2COL_STEM", "0") == "1"
+
+
+def patches_gemm(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                 padding: int) -> torch.Tensor:
+    """A one-input-channel conv as patch extraction and one product: the
+    (N, kh * kw, L) patches of ``F.unfold`` times the (O, kh * kw) kernel,
+    summed in ``promote(dtype, float32)`` and returned in x's dtype."""
+    n, _, h, w = x.shape
+    o, _, kh, kw = weight.shape
+    acc = torch.promote_types(x.dtype, torch.float32)
+    cols = F.unfold(x, (kh, kw), padding=padding, stride=stride)
+    y = torch.matmul(weight.reshape(o, kh * kw).to(acc), cols.to(acc))
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    return y.reshape(n, o, ho, wo).to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):
-    """PyTorch-parity conv: cross-correlation, symmetric padding, bias;
-    ``groups`` splits the channels as ``feature_group_count`` does."""
+    """PyTorch-parity conv: cross-correlation, symmetric padding, bias
+    (unless ``bias=False``); ``groups`` splits the channels as
+    ``feature_group_count`` does.  Under ``im2col_stem_enabled()`` a
+    one-input-channel conv with a kernel over 1 runs as
+    :func:`patches_gemm`."""
 
     def __init__(self, n_in: int, n_out: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, groups: int = 1):
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 bias: bool = True):
         super().__init__(n_in, n_out, kernel_size, stride, padding,
-                         groups=groups)
+                         groups=groups, bias=bias)
 
     def reset_parameters(self, generator=None) -> None:
         nn.init.normal_(self.weight, 0.0, 0.02, generator=generator)
         fan_in = (self.in_channels // self.groups * self.kernel_size[0]
                   * self.kernel_size[1])
-        _uniform_(self.bias, fan_in, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.groups == 1 and self.in_channels == 1
+                and self.kernel_size[0] > 1 and im2col_stem_enabled()):
+            return _add_bias(patches_gemm(x, self.weight, self.stride[0],
+                                          self.padding[0]), self.bias)
         if x.dtype == torch.bfloat16:
             return _add_bias(self._conv_forward(x, self.weight, None),
                              self.bias)
@@ -65,14 +114,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     Bias bound 1/sqrt(O * kh * kw), PyTorch's fan_in for this weight."""
 
     def __init__(self, n_in: int, n_out: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, output_padding: int = 0):
+                 stride: int = 1, padding: int = 0, output_padding: int = 0,
+                 bias: bool = True):
         super().__init__(n_in, n_out, kernel_size, stride, padding,
-                         output_padding)
+                         output_padding, bias=bias)
 
     def reset_parameters(self, generator=None) -> None:
         nn.init.normal_(self.weight, 0.0, 0.02, generator=generator)
         fan_in = self.out_channels * self.kernel_size[0] * self.kernel_size[1]
-        _uniform_(self.bias, fan_in, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
@@ -131,7 +182,8 @@ def reset_parameters(module: nn.Module, generator=None) -> None:
     """Re-draw every parameter of ``module`` from ``generator``, in the
     order of ``module.modules()``."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+        if (isinstance(m, (Conv2d, ConvTranspose2d, Linear))
+                or getattr(m, "resets_own_parameters", False)):
             m.reset_parameters(generator)
 
 

@@ -56,7 +56,7 @@ def rank_device(on_cuda: bool, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
-def initialize(backend: Optional[str] = None, on_cuda: Optional[bool] = None,
+def initialize(backend: Optional[str] = None, on_cuda: bool = True,
                timeout: datetime.timedelta = TIMEOUT) -> Tuple[bool, str]:
     """Build the default process group from the launcher's environment.
 
@@ -64,16 +64,19 @@ def initialize(backend: Optional[str] = None, on_cuda: Optional[bool] = None,
     touching anything when ``WORLD_SIZE`` is unset or 1 (so the same entry
     points work everywhere), ``(True, "initialized")`` on success, and
     ``(False, "<error>")``, logged and never swallowed silently, when the
-    group cannot be made.  ``on_cuda`` (default: whether CUDA is
-    available) says where the ranks compute; on CUDA the rank's card is
-    made current before any CUDA work.  ``backend`` overrides the rule of
-    :func:`choose_backend`.
+    group cannot be made.  ``on_cuda`` says where the ranks compute: on
+    the card by default (a ``RuntimeError`` without one, never a silent
+    fall back to the CPU), the rank's card made current before any CUDA
+    work; CPU ranks pass ``on_cuda=False``.  ``backend`` overrides the
+    rule of :func:`choose_backend`.
     """
     if env_world() <= 1:
         return False, "single-process"
     if dist.is_initialized():
         return True, "initialized"
-    on_cuda = torch.cuda.is_available() if on_cuda is None else on_cuda
+    if on_cuda and not torch.cuda.is_available():
+        raise RuntimeError("initialize: no CUDA device for the ranks; pass "
+                           "on_cuda=False for CPU ranks")
     try:
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", env_world()))

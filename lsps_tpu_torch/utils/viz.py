@@ -4,10 +4,10 @@ The port's copy of ``lsps_tpu/utils/viz.py`` (reference: ``visPair``,
 src/pose_train.py:39-60, src/depth_train.py:38-60; the image strip,
 depth_train.py:174-184; the eval video, depth_train.py:195-246).
 
-* ``vis_pair`` draws cv2's shapes in numpy: a filled circle of radius 2
-  is the pixels within distance 2 of the centre, and a one-pixel line
-  steps along its longer axis and rounds the other.  The gray background
-  is bit-equal to the JAX package's.
+* ``vis_pair`` draws cv2's shapes in numpy (``utils/raster``): a filled
+  circle of radius 2 is the pixels within distance 2 of the centre, and a
+  one-pixel line steps along its longer axis and rounds the other.  The
+  gray background is bit-equal to the JAX package's.
 * ``save_image_strip`` and ``write_png`` write PNG (the JAX package
   writes JPEG through cv2): ``zlib`` and ``struct``, 8-bit gray or RGB
   from BGR.
@@ -24,30 +24,8 @@ import zlib
 import numpy as np
 
 from lsps_tpu_torch.data.transformations import transform_points_2d
+from lsps_tpu_torch.utils.raster import disc, line1
 from lsps_tpu_torch.utils.skeleton import FIG_COLOR
-
-
-def _draw_disc(img, cx, cy, r, color) -> None:
-    """cv2.circle(img, (cx, cy), r, color, -1): every pixel within
-    distance r of the centre, clipped to the image."""
-    h, w = img.shape[:2]
-    ys, xs = np.mgrid[cy - r:cy + r + 1, cx - r:cx + r + 1]
-    keep = (((xs - cx) ** 2 + (ys - cy) ** 2 <= r * r)
-            & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h))
-    img[ys[keep], xs[keep]] = color
-
-
-def _draw_line(img, p0, p1, color) -> None:
-    """cv2.line(img, p0, p1, color, 1): one pixel per step along the
-    longer axis, the other coordinate rounded half up, clipped."""
-    h, w = img.shape[:2]
-    (x0, y0), (x1, y1) = p0, p1
-    n = max(abs(x1 - x0), abs(y1 - y0))
-    t = np.arange(n + 1) / max(n, 1)
-    xs = np.floor(x0 + (x1 - x0) * t + 0.5).astype(np.int64)
-    ys = np.floor(y0 + (y1 - y0) * t + 0.5).astype(np.int64)
-    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
-    img[ys[keep], xs[keep]] = color
 
 
 def vis_pair(camera, depth, pose=None, trans=None, com=None, cube=None,
@@ -72,10 +50,10 @@ def vis_pair(camera, depth, pose=None, trans=None, com=None, cube=None,
     for idx, pt in enumerate(pts):
         c = FIG_COLOR[color_idx[idx]] if color_idx is not None \
             else (0, 255, 0)
-        _draw_disc(img, pt[0], pt[1], 2, c)
+        disc(img, pt[0], pt[1], 2, c)
     if bones and len(pts) > 1:
         for b in bones:
-            _draw_line(img, pts[b[0]], pts[b[1]], b[2])
+            line1(img, pts[b[0]], pts[b[1]], b[2])
     return img
 
 

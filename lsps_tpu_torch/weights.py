@@ -10,6 +10,7 @@ exactly as the JAX package's ``sequential`` lists do.  Per leaf:
 * ``wt`` 4-D (kh, kw, I, O) transposed-conv kernel -> ConvTranspose2d's
   (I, O, kh, kw): perm (2, 3, 0, 1)
 * ``b``                         -> as it is
+* ``scale`` / ``shift`` (BatchNorm's affine) -> ``weight`` / ``bias``
 
 The tree is nested dicts/lists of arrays; anything ``np.asarray`` reads
 (numpy or JAX arrays) will do, and nothing of JAX is imported here.
@@ -43,10 +44,10 @@ def _walk(node: Any, path: List[str], out: Dict[str, torch.Tensor]) -> None:
             a = a.T
         elif leaf == "wt" and a.ndim == 4:
             a = a.transpose(2, 3, 0, 1)
-        elif leaf != "b":
+        elif leaf not in ("b", "scale", "shift"):
             raise ValueError(f"no rule for leaf {'/'.join(path)} "
                              f"with shape {a.shape}")
-        name = "bias" if leaf == "b" else "weight"
+        name = "bias" if leaf in ("b", "shift") else "weight"
         out[".".join(path[:-1] + [name])] = torch.from_numpy(
             np.ascontiguousarray(a))
 
@@ -67,7 +68,10 @@ def _to_jax(module: nn.Module, prefix: str,
         for name in own:
             # a copy: the tree never aliases the module's tensors
             a = tensors[prefix + name].detach().cpu().numpy().copy()
-            if name == "bias":
+            leaf_names = getattr(module, "jax_leaf_names", None)
+            if leaf_names:
+                node[leaf_names[name]] = a
+            elif name == "bias":
                 node["b"] = a
             elif isinstance(module, nn.ConvTranspose2d):
                 node["wt"] = a.transpose(2, 3, 0, 1)

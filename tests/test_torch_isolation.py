@@ -80,7 +80,11 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
             "lsps_tpu_torch.cli.latent_walk",
             "lsps_tpu_torch.parallel",
             "lsps_tpu_torch.parallel.mesh",
-            "lsps_tpu_torch.parallel.multihost"} <= set(out["names"])
+            "lsps_tpu_torch.parallel.multihost",
+            "lsps_tpu_torch.ops.common_net",
+            "lsps_tpu_torch.utils.raster",
+            "lsps_tpu_torch.utils.pdf",
+            "lsps_tpu_torch.eval.handpose_evaluation"} <= set(out["names"])
     assert out["bad"] == []
     assert out["absent"] == []
 
@@ -108,6 +112,28 @@ def test_loader_without_a_named_device_needs_the_card(backend, monkeypatch):
             lp.disable_raw()
     named = loader.get_data_loader(ds, 2, shuffle=True, device="cpu")
     assert named.fast and named.raw == (backend == "step")
+
+
+def test_ranks_without_a_named_device_need_the_card(monkeypatch):
+    """``parallel.initialize`` and ``make_mesh`` put the ranks on the card
+    unless the CPU is named; with no card they raise rather than fall back
+    to the CPU and gloo."""
+    import torch.distributed as dist
+
+    from lsps_tpu_torch.parallel import initialize, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 1)
+    mesh = make_mesh(1, 1, device="cpu")
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.device == torch.device("cpu")
+    assert (mesh.data.rank, mesh.data.world) == (0, 1)
 
 
 def _inputs():
