@@ -132,7 +132,21 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     within 1e-4, under 1e-3 of the pixels picked differently).  The cuts
     (iterations, ``sample_poses``, cadences, frames) are on the phase's
     line;
-13. the serving surface, each with the launch counts set to 0 just before
+13. the system's own tools through their ``main`` (``lsps_tpu_torch/
+    scripts/``), TF32 off: ``realtime_demo --ch 64`` over 64 frames on the
+    host route and on ``--device-detect``, the crop launch count set to 0
+    just before each and read just after (one launch a frame), each AVI
+    well formed with 64 frames, finite joints, the host route's CoMs on the
+    card within 2 px and 3 mm of the same route's first 16 frames on the
+    CPU (and the device route's of the host route's), its joints within
+    0.05 mm; the detect and infer medians beside the card's name and power
+    limit;
+    ``eval_checkpoints`` over the CLI phase's ``est_gen`` snapshots, each
+    printed error within 0.05 mm of the CPU run's; ``parity_gate`` on
+    ``.pkl`` files of the serve phase's weights and phase 12's NYU
+    mini-dataset: 2 for a missing file, 0 with ``--expect`` at the CPU's
+    error, 1 with it 1 mm away;
+14. the serving surface, each with the launch counts set to 0 just before
     and read just after: ``device_detect_batch`` over 256 seeded random
     hands on the card against the CPU (run after phase 3: u and v equal, z
     within the 128 float32 ulps that ``tests/test_torch_detect.py``
@@ -151,7 +165,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     the latent walk (``cli.latent_walk.main``, 16 steps: the AVI and the
     strip, finite frames, 15 IN + LeakyReLU launches, the walk within 1e-3
     of the same walk on the CPU);
-14. data parallelism (``lsps_tpu_torch/parallel``) at nnyu widths: (a)
+15. data parallelism (``lsps_tpu_torch/parallel``) at nnyu widths: (a)
     two ranks sharing the card under gloo, started by ``python -m
     torch.distributed.run --nproc-per-node 2 chip_smoke.py --dp-rank
     SPEC``, take three ``pretrain_update_raw`` steps at global batch 32
@@ -176,7 +190,7 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     limit: two ranks sharing one card, not a scaling figure (``python3
     chip_smoke.py --dp-cards`` runs parts (a) and (f) with one NCCL rank
     on each card of a machine with several);
-15. print the ``kernels`` line, the card's name and power limit, and last
+16. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -2362,7 +2376,9 @@ def phase_realdata(torch, dev, raw_rows):
     test_b evaluation, ``pose_train`` on the NYU split and
     ``exps/nicvl.yaml`` pretrain under ``host`` (the norm kernels' launch
     counts per iteration asserted), and ``host`` held against ``native``
-    over one epoch.  Returns (rows, the runs' launches by path)."""
+    over one epoch.  Returns (rows, the runs' launches by path, the
+    phase's directory and its ``exps/nnyu.yaml`` copy, which the tools
+    phase reads and ``main`` removes)."""
     import shutil
 
     from lsps_tpu_torch import native
@@ -2549,7 +2565,6 @@ def phase_realdata(torch, dev, raw_rows):
     check_pretrain("pretrain nicvl host", rec)
     record("pretrain nicvl host", rec)
     rows["runs"] = runs
-    shutil.rmtree(tmp)
     rows["phase_s"] = time.perf_counter() - t_phase
     cuts = dict(REAL_CUTS, iterations={
         "pose_train": f"{REAL_POSE_ITERS} (500000)",
@@ -2563,7 +2578,7 @@ def phase_realdata(torch, dev, raw_rows):
         f"{rows['decode_frames_per_s']:.1f} frames/s; loader ms per batch "
         f"{json.dumps({k: round(v, 2) for k, v in loaders.items()})}; host "
         f"vs native {json.dumps(rows['host_vs_native'])}")
-    return rows, launches_by_path
+    return rows, launches_by_path, tmp, cfg
 
 
 # ---------------------------------------------------------------------------
@@ -4460,6 +4475,289 @@ def phase_dp(torch, dev, hyp, train_sd, serve_sd, cli_cfg, cli_prefix,
     return row, launches, serve_launches
 
 
+# ---------------------------------------------------------------------------
+# the system's own tools: the live demo, checkpoint re-evaluation and the
+# parity gate
+# ---------------------------------------------------------------------------
+
+TOOLS_FRAMES = 64
+TOOLS_CPU_FRAMES = 16    # the host route's first frames again on the CPU
+TOOLS_CH = 64            # exps/nnyu.yaml's widths, the demo's default
+TOOLS_EVAL_MM = JOINTS_CPU_MM   # a mean error moves at most as its joints
+TOOLS_GATE_OFF_MM = 1.0  # --expect this far off must fail the 0.5 mm gate
+
+
+def avi_frames(path, size):
+    """The frame counts of an uncompressed AVI as ``EvalVideoWriter``
+    writes it: the main header's, the ``movi`` list's (each chunk ``00db``
+    of one top-down BGR frame of ``size``) and the index's.  Raises on a
+    malformed file."""
+    import struct
+
+    b = Path(path).read_bytes()
+    if b[:4] != b"RIFF" or b[8:12] != b"AVI " or \
+            struct.unpack("<I", b[4:8])[0] != len(b) - 8:
+        raise AssertionError(f"{path}: not a whole RIFF AVI")
+    parts, pos = {}, 12
+    while pos < len(b):
+        tag, n = b[pos:pos + 4], struct.unpack("<I", b[pos + 4:pos + 8])[0]
+        body = b[pos + 8:pos + 8 + n]
+        parts[body[:4] if tag == b"LIST" else tag] = (
+            body[4:] if tag == b"LIST" else body)
+        pos += 8 + n + (n & 1)
+    if pos != len(b) or not {b"hdrl", b"movi", b"idx1"} <= set(parts):
+        raise AssertionError(f"{path}: chunks {sorted(parts)}")
+    hdrl, movi, idx = parts[b"hdrl"], parts[b"movi"], parts[b"idx1"]
+    total, = struct.unpack("<I", hdrl[8 + 16:8 + 20])
+    w, h = struct.unpack("<II", hdrl[8 + 32:8 + 40])
+    frame_bytes = (w * 3 + 3) // 4 * 4 * h
+    chunks, pos = 0, 0
+    while pos < len(movi):
+        tag, n = movi[pos:pos + 4], struct.unpack("<I", movi[pos + 4:pos + 8])[0]
+        if tag != b"00db" or n != frame_bytes:
+            raise AssertionError(f"{path}: movi chunk {tag} of {n} bytes")
+        chunks += 1
+        pos += 8 + n
+    if (w, h) != tuple(size) or len(idx) % 16:
+        raise AssertionError(f"{path}: {w} x {h}, index {len(idx)} bytes")
+    return {"header": total, "movi": chunks, "index": len(idx) // 16}
+
+
+def phase_tools(torch, dev, sd, cli_cfg, cli_prefix, real_cfg, tmp):
+    """The port's tools (``lsps_tpu_torch/scripts/``) through their
+    ``main``, TF32 off: (a) ``realtime_demo`` at ``--ch 64`` over 64 frames
+    on the host route and on ``--device-detect``, the crop launch count
+    set to 0 just before each run and read just after (one launch a
+    frame), each AVI well formed with 64 frames, the joints finite, and the
+    host route's first 16 frames on the CPU: its CoMs within the tracking
+    phase's bound of the card's (2 px, 3 mm), its joints within 0.05 mm;
+    the device route's CoMs within the same bound of the host route's; (b)
+    ``eval_checkpoints`` over the CLI phase's ``est_gen`` snapshots (the
+    estimate3 run's, with its VAE of frac 2.5), each printed error within
+    0.05 mm of the CPU run's on the same snapshots, the datasets made once
+    for both; (c) ``parity_gate`` on ``.pkl`` files of the
+    serve phase's seeded weights and the real-data phase's NYU
+    mini-dataset: 2 for a missing file, 0 with ``--expect`` at the CPU's
+    error, 1 with it 1 mm away, the card's error within 0.05 mm of the
+    CPU's; the norm kernels' launches counted around the card's runs of
+    (b) and (c), none expected.  Returns (a result row, crop launches by
+    route, norm launches by path)."""
+    import io
+    import re
+    import tempfile
+
+    import yaml
+
+    from lsps_tpu_torch.cli import common as C
+    from lsps_tpu_torch.ops.kernels import norm_act as N
+    from lsps_tpu_torch.ops.kernels import warp as WK
+    from lsps_tpu_torch.scripts import eval_checkpoints as EC
+    from lsps_tpu_torch.scripts import parity_gate as PG
+    from lsps_tpu_torch.scripts import realtime_demo as RD
+
+    t_phase = time.perf_counter()
+    out_dir = tmp / "tools"
+    out_dir.mkdir()
+    cpu = torch.device("cpu")
+    row = {"frames": TOOLS_FRAMES, "ch": TOOLS_CH}
+
+    def printed(fn, argv):
+        buf = io.StringIO()
+        try:
+            with tf32_off(torch), contextlib.redirect_stdout(buf):
+                rc = fn(argv)
+        except BaseException:
+            log(buf.getvalue()[-4000:])
+            raise
+        return rc, buf.getvalue()
+
+    # (a) the live demo, each route on the card, the host route on the CPU
+    def demo(route, device, frames=TOOLS_FRAMES):
+        rec = {"coms": [], "joints": []}
+        run = RD.run
+
+        def recording(est, n, device_detect=False, timings=None):
+            rec["timings"] = timings
+            for com, joints, img in run(est, n, device_detect, timings):
+                rec["coms"].append(np.asarray(com, np.float64))
+                rec["joints"].append(joints)
+                yield com, joints, img
+
+        avi = out_dir / f"demo_{route}_{device.type}.avi"
+        argv = ["--frames", str(frames), "--ch", str(TOOLS_CH),
+                "--out", str(avi), "--device", device_flag(device)]
+        WK.crop_normalize.launches = 0
+        t0 = time.perf_counter()
+        with unittest.mock.patch.object(RD, "run", recording):
+            _, out = printed(RD.main, argv + (
+                ["--device-detect"] if route == "device" else []))
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = WK.crop_normalize.launches
+        rec["line"] = json.loads(out.strip().splitlines()[-1])
+        rec["avi"] = avi_frames(avi, (128, 128))
+        rec["coms"], rec["joints"] = (np.stack(rec["coms"]),
+                                      np.stack(rec["joints"]))
+        return rec
+
+    runs = {"host": demo("host", dev), "device": demo("device", dev),
+            "host cpu": demo("host", cpu, TOOLS_CPU_FRAMES)}
+    launches = {}
+    for name in ("host", "device"):
+        r = runs[name]
+        launches[f"realtime_demo {name} route ({TOOLS_FRAMES} frames)"] = \
+            r["launches"]
+        if r["launches"] != TOOLS_FRAMES or \
+                set(r["avi"].values()) != {TOOLS_FRAMES} or \
+                r["joints"].shape != (TOOLS_FRAMES, 36, 3) or \
+                not np.isfinite(r["joints"]).all() or \
+                r["line"]["frames"] != TOOLS_FRAMES or \
+                r["line"]["device_detect"] != (name == "device"):
+            raise AssertionError(f"realtime_demo {name}: {r['launches']} "
+                                 f"crop launches, AVI {r['avi']}, joints "
+                                 f"{r['joints'].shape}, line {r['line']}")
+    gaps = {}
+    for name, a, b in (("host card vs cpu", "host", "host cpu"),
+                       ("device vs host route", "device", "host")):
+        n = min(len(runs[a]["coms"]), len(runs[b]["coms"]))
+        g = np.abs(runs[a]["coms"][:n] - runs[b]["coms"][:n])
+        gaps[name] = {"du_px": float(g[:, 0].max()),
+                      "dv_px": float(g[:, 1].max()),
+                      "dz_mm": float(g[:, 2].max())}
+        if g[:, :2].max() > TRACK_PX or g[:, 2].max() > TRACK_MM:
+            raise AssertionError(f"realtime_demo CoMs, {name}: {gaps[name]} "
+                                 f"(bound {TRACK_PX} px, {TRACK_MM} mm)")
+    demo_cpu_mm = float(np.abs(runs["host"]["joints"][:TOOLS_CPU_FRAMES]
+                               - runs["host cpu"]["joints"]).max())
+    if demo_cpu_mm > JOINTS_CPU_MM:
+        raise AssertionError(f"realtime_demo joints card vs CPU {demo_cpu_mm}"
+                             f" mm (tol {JOINTS_CPU_MM})")
+    card = gpu_name_and_power()
+    row["demo"] = {name: {
+        "detect_ms_median": float(np.median(r["timings"]["detect_ms"])),
+        "infer_ms_median": float(np.median(r["timings"]["infer_ms"])),
+        "infer_ms_mean": float(np.mean(r["timings"]["infer_ms"])),
+        "crop_launches": r["launches"], "avi_frames": r["avi"]["movi"],
+        "wall_s": r["wall_s"], "line": r["line"]}
+        for name, r in runs.items()}
+    row["demo_com_gaps"] = gaps
+    row["demo_joints_card_vs_cpu_mm"] = demo_cpu_mm
+    for name in ("host", "device"):
+        d = row["demo"][name]
+        log(f"realtime_demo {name} route ({card}): {TOOLS_FRAMES} frames at "
+            f"ch {TOOLS_CH}, detect_ms_median {d['detect_ms_median']}, "
+            f"infer_ms_median {d['infer_ms_median']}, crop_normalize "
+            f"launches {d['crop_launches']}, AVI frames {d['avi_frames']}, "
+            f"wall {d['wall_s']:.1f} s")
+    log(f"realtime_demo: CoM gaps {json.dumps(gaps)}, host route joints "
+        f"card vs CPU {demo_cpu_mm:.3g} mm (tol {JOINTS_CPU_MM})")
+
+    # (b) re-evaluation of the CLI phase's estimate3 snapshots; both runs
+    # evaluate the same datasets, made once
+    doc = yaml.safe_load(Path(cli_cfg).read_text())
+    doc["train"]["snapshot_prefix"] = str(cli_prefix)
+    eval_cfg = out_dir / Path(cli_cfg).name
+    eval_cfg.write_text(yaml.safe_dump(doc))
+    made, make_datasets = {}, C.make_datasets
+
+    def datasets_once(config):
+        if "ds" not in made:
+            made["ds"] = make_datasets(config)
+        return made["ds"]
+
+    pat = re.compile(r"checkpoint (\S+) \(iteration (\d+)\): Mean err: "
+                     r"([0-9.]+) mm, Max over 40mm: ([0-9.]+) %")
+    evals, norm_by_path = {}, {}
+    for device in (dev, cpu):
+        zero_norm_launches(N)
+        t0 = time.perf_counter()
+        with unittest.mock.patch.object(C, "make_datasets", datasets_once), \
+                unittest.mock.patch.object(tempfile, "tempdir",
+                                           str(out_dir)):
+            _, out = printed(EC.main, [
+                "--config", str(eval_cfg), "--frac", "0.5", "--batch-size",
+                str(CLI_BATCH), "--device", device_flag(device)])
+        torch.cuda.synchronize()
+        evals[device.type] = {"lines": pat.findall(out),
+                              "wall_s": time.perf_counter() - t0}
+        if device == dev:
+            norm_by_path["tools eval_checkpoints"] = norm_launches(N)
+    want = sorted(p.name for p in Path(cli_prefix).parent.glob(
+        "pre_est_gen_*.npz"))
+    got, ref = evals[dev.type]["lines"], evals["cpu"]["lines"]
+    if [f for f, *_ in got] != want or [f for f, *_ in ref] != want or \
+            not want:
+        raise AssertionError(f"eval_checkpoints: lines {got} / {ref}, "
+                             f"snapshots {want}")
+    eval_gaps = [abs(float(g[2]) - float(r[2])) for g, r in zip(got, ref)]
+    if max(eval_gaps) > TOOLS_EVAL_MM or any(
+            not math.isfinite(float(g[2])) for g in got):
+        raise AssertionError(f"eval_checkpoints card vs CPU {got} / {ref} "
+                             f"(tol {TOOLS_EVAL_MM} mm)")
+    row["eval_checkpoints"] = {
+        "snapshots": want, "card": got, "cpu": ref,
+        "mean_err_gap_mm": eval_gaps,
+        "wall_s": {k: v["wall_s"] for k, v in evals.items()}}
+    log(f"eval_checkpoints ({card}): {len(want)} snapshots, card {got}, "
+        f"CPU {ref}, mean error gaps {eval_gaps} mm (tol {TOOLS_EVAL_MM})")
+
+    # (c) the parity gate on the seeded serving weights
+    pkl = {net: out_dir / name for net, name in (
+        ("dis", "pre_dis_00000001.pkl"), ("vae", "pre_vae_2.50_00000001.pkl"))}
+    for net, path in pkl.items():
+        torch.save({k[len(net) + 1:]: v for k, v in sd.items()
+                    if k.startswith(net + ".")}, path)
+    gate_pat = re.compile(r"parity_gate: mean err ([0-9.]+) mm")
+
+    def gate(device, *extra, vae=None):
+        with contextlib.chdir(out_dir):
+            rc, out = printed(PG.main, [
+                "--config", str(real_cfg), "--dis", str(pkl["dis"]),
+                "--vae", str(vae or pkl["vae"]), "--device",
+                device_flag(device), *extra])
+        errs = [float(e) for e in gate_pat.findall(out)]
+        return rc, out, errs
+
+    t0 = time.perf_counter()
+    zero_norm_launches(N)
+    rc_missing, out_missing, _ = gate(dev, vae=out_dir / "absent.pkl")
+    rc_cpu, _, cpu_err = gate(cpu)
+    if len(cpu_err) != 1 or not math.isfinite(cpu_err[0]):
+        raise AssertionError(f"parity_gate on the CPU: errors {cpu_err}")
+    rc_pass, out_pass, pass_err = gate(dev, "--expect", f"{cpu_err[0]!r}")
+    rc_fail, out_fail, fail_err = gate(
+        dev, "--expect", f"{cpu_err[0] + TOOLS_GATE_OFF_MM!r}")
+    torch.cuda.synchronize()
+    norm_by_path["tools parity_gate (2 runs on the card)"] = \
+        norm_launches(N)
+    # the mode-3 evaluation regresses with dis and decodes with vae: the
+    # generator, and so every norm kernel, stays idle
+    if any(v for c in norm_by_path.values() for v in c.values()):
+        raise AssertionError(f"tools: norm launches {norm_by_path}")
+    gate_s = time.perf_counter() - t0
+    gate_gap = max((abs(e - cpu_err[0]) for e in pass_err + fail_err),
+                   default=None)
+    if (rc_missing, rc_cpu, rc_pass, rc_fail) != (2, 0, 0, 1) or \
+            not out_missing.startswith("MISSING checkpoints") or \
+            "-> PASS" not in out_pass or "-> FAIL" not in out_fail or \
+            len(pass_err) != 1 or len(fail_err) != 1 or \
+            gate_gap > TOOLS_EVAL_MM:
+        raise AssertionError(f"parity_gate: return codes {rc_missing}, "
+                             f"{rc_cpu}, {rc_pass}, {rc_fail}; errors CPU "
+                             f"{cpu_err}, card {pass_err} / {fail_err}")
+    row["parity_gate"] = {"return_codes": {"missing": rc_missing,
+                                           "cpu": rc_cpu, "expect cpu":
+                                           rc_pass, "expect +1 mm": rc_fail},
+                          "mean_err_mm": {"cpu": cpu_err[0],
+                                          "card": pass_err[0]},
+                          "gap_mm": gate_gap, "wall_s": gate_s}
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"parity_gate ({card}): return codes {row['parity_gate']['return_codes']}"
+        f", mean error card {pass_err[0]} vs CPU {cpu_err[0]} mm (tol "
+        f"{TOOLS_EVAL_MM}), {gate_s:.1f} s; tools phase {row['phase_s']:.1f} s")
+    return row, launches, norm_by_path
+
+
 def gpu_name_and_power():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4534,8 +4832,13 @@ def main() -> int:
     mark("norm, train and raw timing")
     cli_rows, cli_tmp, cli_cfg, cli_prefix = phase_cli(torch, dev, raw_rows)
     mark("cli")
-    real_rows, real_launches = phase_realdata(torch, dev, raw_rows)
+    real_rows, real_launches, real_tmp, real_cfg = phase_realdata(
+        torch, dev, raw_rows)
     mark("realdata")
+    tools_row, tools_launches, tools_norm = phase_tools(
+        torch, dev, sd, cli_cfg, cli_prefix, real_cfg, cli_tmp)
+    shutil.rmtree(real_tmp)
+    mark("tools")
     est, daemon_row = phase_daemon(torch, dev, cli_cfg, cli_prefix,
                                    cli_tmp)
     export_launches, export_rows = phase_export(
@@ -4557,6 +4860,7 @@ def main() -> int:
             r["launches"]
     path_launches[f"cli latent_walk --steps {WALK_STEPS}"] = walk_launches
     path_launches.update(real_launches)
+    path_launches.update(tools_norm)
     path_launches.update(dp_launches)
 
     log("warp timing " + json.dumps(warp_rows))
@@ -4574,6 +4878,8 @@ def main() -> int:
          "export": export_rows, "latent_walk": walk_row,
          "card": gpu_name_and_power()}))
     log("data-parallel phase " + json.dumps(dp_row))
+    log("tools phase " + json.dumps(
+        {**tools_row, "card": gpu_name_and_power()}))
     log("tracking phase " + json.dumps(
         {**track_row, "card": gpu_name_and_power()}))
     log("plots phase " + json.dumps(
@@ -4631,6 +4937,7 @@ def main() -> int:
             f"sharded serving, {DP_WORLD} replicas on the card (1 call)":
                 dp_crop_launches,
             **{f"host tracking: {k}": v for k, v in track_launches.items()},
+            **{f"tools: {k}": v for k, v in tools_launches.items()},
             "plots: the card's crop of frame 0": plots_row["crop_launches"]},
         # ms per call of the exported programs beside the live call
         "exported_ms_per_call": {

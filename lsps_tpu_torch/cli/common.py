@@ -132,7 +132,7 @@ def device_of(opts) -> torch.device:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to train on the CPU")
+                           "to run on the CPU")
     return torch.device("cuda", int(opts.device))
 
 

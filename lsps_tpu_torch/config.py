@@ -80,6 +80,11 @@ def load_config(path: str) -> NetConfig:
     return NetConfig(path)
 
 
+class SettingConfig(NetConfig):
+    """The reference's second name for ``NetConfig`` (net_config.py:29-40,
+    the same class body), kept for its API surface."""
+
+
 # ---------------------------------------------------------------------------
 # Default hyperparameters (reference exps/nnyu.yaml:9-60); used by tests and
 # synthetic runs so the framework works stand-alone without dataset files.

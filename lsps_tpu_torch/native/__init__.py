@@ -9,7 +9,10 @@ package's ``native/lsps_native.cpp``) is compiled on first use with
 into ``build/`` at the root of the checkout (listed in ``.gitignore``),
 keyed by a hash of the source and the flags, as ``ops/kernels/build.py``
 builds the CUDA kernels; the ``native`` augment backend calls its
-``fused_recrop_normalize_batch``.  The flags are the JAX package's, so the two
+``fused_recrop_normalize_batch``.  Its two other entries, the nearest
+perspective warp of one image (``warp_perspective_nn``) and the batched
+depth normalization (``normalize_batch``), are bound as the JAX package
+binds them.  The flags are the JAX package's, so the two
 libraries give the same bits.  Where the compiler has no OpenMP runtime
 (no ``libgomp``), the library is built without ``-fopenmp``, as the JAX
 package builds it there: the same arithmetic, one thread over the
@@ -92,6 +95,11 @@ def get_lib(build_dir=None) -> ctypes.CDLL:
             fused.argtypes = [f, i, i, i, d, f, f, f, f, f, ctypes.c_float,
                               ctypes.c_float, f]
             fused.restype = None
+            lib.warp_perspective_nn.argtypes = [f, i, i, d, f, i, i,
+                                                ctypes.c_float]
+            lib.warp_perspective_nn.restype = None
+            lib.normalize_batch.argtypes = [f, i, i, f, f, f]
+            lib.normalize_batch.restype = None
             _LIBS[path] = lib
         return _LIBS[path]
 
@@ -113,6 +121,24 @@ def _dptr(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
+def warp_perspective_nn(src, M_dst_to_src, dsize, border=0.0) -> np.ndarray:
+    """Nearest-neighbour perspective warp of one float32 image into
+    ``dsize`` = (height, width); ``M_dst_to_src`` maps destination to
+    source coordinates (cv2's ``WARP_INVERSE_MAP``).  Coordinates are
+    double and round half away from zero; pixels that fall outside the
+    source get ``border``."""
+    src = np.ascontiguousarray(src, np.float32)
+    if src.ndim != 2:
+        raise ValueError(f"src must be one (H, W) image, not {src.shape}")
+    m = np.ascontiguousarray(M_dst_to_src, np.float64).reshape(9)
+    dh, dw = (int(v) for v in dsize)
+    out = np.empty((dh, dw), np.float32)
+    get_lib().warp_perspective_nn(_fptr(src), src.shape[0], src.shape[1],
+                                  _dptr(m), _fptr(out), dh, dw,
+                                  ctypes.c_float(border))
+    return out
+
+
 def fused_recrop_normalize_batch(src, minv, com_z, cube_z, premax, zstart,
                                  zend, pad_value=0.0,
                                  nv_val=32000.0) -> np.ndarray:
@@ -129,4 +155,22 @@ def fused_recrop_normalize_batch(src, minv, com_z, cube_z, premax, zstart,
         _fptr(src), n, h, w, _dptr(minv), _fptr(args[0]), _fptr(args[1]),
         _fptr(args[2]), _fptr(args[3]), _fptr(args[4]),
         ctypes.c_float(pad_value), ctypes.c_float(nv_val), _fptr(out))
+    return out
+
+
+def normalize_batch(src, com_z, cube_z) -> np.ndarray:
+    """(B, ...) depth in mm -> normalized depth, one pass: background (0)
+    to the far plane, then ``(d - com_z) / (cube_z / 2)`` per sample
+    (``data.augment.normalize``, batched)."""
+    src = np.ascontiguousarray(src, np.float32)
+    n = src.shape[0]
+    hw = int(np.prod(src.shape[1:]))
+    com_z = np.ascontiguousarray(com_z, np.float32).reshape(-1)
+    cube_z = np.ascontiguousarray(cube_z, np.float32).reshape(-1)
+    if com_z.shape != (n,) or cube_z.shape != (n,):
+        raise ValueError(f"{n} samples, {com_z.shape[0]} com_z, "
+                         f"{cube_z.shape[0]} cube_z")
+    out = np.empty_like(src)
+    get_lib().normalize_batch(_fptr(src), n, hw, _fptr(com_z), _fptr(cube_z),
+                              _fptr(out.reshape(n, hw)))
     return out

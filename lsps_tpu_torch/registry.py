@@ -30,3 +30,8 @@ def lookup(kind: str, name: str):
         raise KeyError(
             f"No {kind!r} registered under {name!r}. Known: {known}"
         ) from None
+
+
+def registered(kind: str) -> Dict[str, object]:
+    """A copy of the ``kind`` table: name -> class or function."""
+    return dict(_REGISTRIES.get(kind, {}))

@@ -1,12 +1,13 @@
 """Metrics logging and run artifacts.
 
 The port's copy of ``lsps_tpu/utils/logging.py`` (reference:
-src/common.py:19-80): snapshot and image folders, the HTML gallery, and
+src/common.py:19-80): snapshot and image folders, the HTML gallery,
 ``write_loss``, which logs every loss, accuracy and learning-rate entry
-of an update's metrics.  Metrics go to ``metrics.jsonl`` only (the JAX
-package's fallback when tensorboardX is missing; the card's machine has
-none).  ``profile_trace`` wraps ``torch.profiler`` and writes a Chrome
-trace into ``--profile-dir``.
+of an update's metrics, and ``StepTimer``, steps per second by window.
+Metrics go to ``metrics.jsonl`` only (the JAX package's fallback when
+tensorboardX is missing; the card's machine has none).
+``profile_trace`` wraps ``torch.profiler`` and writes a Chrome trace into
+``--profile-dir``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -128,3 +130,23 @@ def profile_trace(logdir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class StepTimer:
+    """Step time and throughput by window: ``tick(n)`` counts steps,
+    ``window()`` returns (seconds, steps per second) since the last window
+    and starts the next."""
+
+    def __init__(self):
+        self.t0 = time.time()
+        self.steps = 0
+
+    def tick(self, n: int = 1) -> None:
+        self.steps += n
+
+    def window(self):
+        dt = time.time() - self.t0
+        sps = self.steps / dt if dt > 0 else 0.0
+        self.t0 = time.time()
+        self.steps = 0
+        return dt, sps

@@ -57,8 +57,12 @@ def test_port_imports_no_jax_and_no_lsps_tpu():
     # daemon, the export, the latent walk, the checkpoint loader, the PNG
     # reader, the real-data importers and datasets, the native augment
     # library's bindings, data parallelism, the contour and colour code,
-    # the legacy stacks and the live frame are among the modules held
-    assert {"lsps_tpu_torch.data.png",
+    # the legacy stacks, the live frame and the three tools are among the
+    # modules held
+    assert {"lsps_tpu_torch.scripts.realtime_demo",
+            "lsps_tpu_torch.scripts.eval_checkpoints",
+            "lsps_tpu_torch.scripts.parity_gate",
+            "lsps_tpu_torch.data.png",
             "lsps_tpu_torch.data.contours",
             "lsps_tpu_torch.data.color",
             "lsps_tpu_torch.data.stacks",
