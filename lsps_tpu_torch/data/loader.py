@@ -19,6 +19,17 @@ as in the JAX package:
   unchanged against either package;
 * ``step``: the loader yields warp parameters only, and the image work
   runs inside the training step (the trainer's ``*_raw`` updates).
+
+Three counters on the class total every loader of the process, as the
+kernel wrappers' ``.launches`` do: ``DataLoader.batches``, the batches
+handed to a consumer; ``DataLoader.stalls``, those of them that the
+consumer found the queue empty for and waited on; ``DataLoader.busy_s``,
+the producer threads' seconds inside the dataset call for those batches
+(``perf_counter``).  The producer passes its seconds along with each
+batch and the consuming thread adds them up, so no two threads write one
+counter.  A consumer's wait on an empty queue is a ``lsps.loader_wait``
+span while a torch profiler records (``utils/logging.py``); the producer
+thread opens no span.
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
+
+from lsps_tpu_torch.utils.logging import span
 
 DEFAULT_AUGMENT = "host"
 BACKENDS = ("host", "native", "jax", "step")
@@ -45,6 +59,11 @@ def _stack(samples):
 
 class DataLoader:
     """Iterate minibatches of stacked numpy arrays."""
+
+    # process totals over every loader (module docstring)
+    batches = 0
+    stalls = 0
+    busy_s = 0.0
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  seed: int = 0, fast: bool = False,
@@ -123,6 +142,7 @@ class DataLoader:
                     if cancel.is_set():
                         return
                     idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+                    t0 = time.perf_counter()
                     if self.raw:
                         batch = self.dataset.raw_fast_batch(
                             [int(i) for i in idx])
@@ -131,7 +151,7 @@ class DataLoader:
                             [int(i) for i in idx])
                     else:
                         batch = _stack([self.dataset[int(i)] for i in idx])
-                    if not _put(batch):
+                    if not _put((batch, time.perf_counter() - t0)):
                         return
             except Exception as e:  # surface worker errors to the consumer
                 _put(e)
@@ -142,12 +162,20 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                try:
+                    item, stalled = q.get_nowait(), False
+                except queue.Empty:
+                    with span("loader_wait"):
+                        item, stalled = q.get(), True
                 if item is stop:
                     break
                 if isinstance(item, Exception):
                     raise item
-                yield item
+                batch, busy = item
+                DataLoader.batches += 1
+                DataLoader.stalls += stalled
+                DataLoader.busy_s += busy
+                yield batch
         finally:
             # abandoned mid-epoch (zip with a shorter loader, early
             # return): unblock and retire the producer

@@ -12,7 +12,10 @@ and camera, which ``torch.export`` traces (``serve/export.py``):
 ``FramesProgram`` ``(frames, coms, cubes) -> joints`` and ``RawProgram``
 ``(frames, cubes) -> (joints, coms)`` with the CoM detected on the device.
 ``PoseEstimator.predict_frames`` and ``predict_raw`` call the same
-modules, so that live and exported serving compute one function.
+modules, so that live and exported serving compute one function.  Under a
+recording profiler a call opens the spans ``lsps.predict``, ``lsps.h2d``,
+``lsps.detect``, ``lsps.crop``, ``lsps.regress`` and ``lsps.decode``
+(``utils/logging.py``); an exported program holds none of them.
 
 ``PoseEstimator(devices=(...))`` is the counterpart of the JAX package's
 ``mesh=``: one replica of the nets per device, each call's batch split into
@@ -34,6 +37,7 @@ from lsps_tpu_torch.data.camera import Camera
 from lsps_tpu_torch.models import build_model
 from lsps_tpu_torch.serve.detect import device_detect_batch
 from lsps_tpu_torch.serve.preprocess import crop_normalize_batch
+from lsps_tpu_torch.utils.logging import span
 
 DEFAULT_CUBE_MM = 300.0
 
@@ -51,21 +55,32 @@ class FramesProgram(nn.Module):
         self.dis, self.vae = dis, vae
         self.camera, self.domain, self.dtype = camera, domain, dtype
 
-    def crops_to_pose(self, crops: torch.Tensor) -> torch.Tensor:
-        """(B, 128, 128, 1) normalized crops -> (B, reg_dim) pose."""
+    def _regress(self, crops: torch.Tensor) -> torch.Tensor:
+        """(B, 128, 128, 1) normalized crops -> the regressor's float32
+        posterior code."""
         regress = (self.dis.regress_b if self.domain == "b"
                    else self.dis.regress_a)
-        _, post, _ = regress(crops.to(self.dtype))
-        return self.vae.decode(post.to(torch.float32))
+        with span("regress"):
+            _, post, _ = regress(crops.to(self.dtype))
+        return post.to(torch.float32)
+
+    def crops_to_pose(self, crops: torch.Tensor) -> torch.Tensor:
+        """(B, 128, 128, 1) normalized crops -> (B, reg_dim) pose."""
+        post = self._regress(crops)
+        with span("decode"):
+            return self.vae.decode(post)
 
     def forward(self, frames: torch.Tensor, coms: torch.Tensor,
                 cubes: torch.Tensor) -> torch.Tensor:
-        crops, _ = crop_normalize_batch(frames, coms, cubes, self.camera.fx,
-                                        self.camera.fy)
-        pose = self.crops_to_pose(crops[..., None])
-        j = pose.reshape(pose.shape[0], -1, 3)
-        com3d = self.camera.img_to_3d(coms)
-        return j * (cubes[:, 2:3, None] / 2.0) + com3d[:, None, :]
+        with span("crop"):
+            crops, _ = crop_normalize_batch(frames, coms, cubes,
+                                            self.camera.fx, self.camera.fy)
+        post = self._regress(crops[..., None])
+        with span("decode"):
+            pose = self.vae.decode(post)
+            j = pose.reshape(pose.shape[0], -1, 3)
+            com3d = self.camera.img_to_3d(coms)
+            return j * (cubes[:, 2:3, None] / 2.0) + com3d[:, None, :]
 
 
 class RawProgram(nn.Module):
@@ -79,7 +94,8 @@ class RawProgram(nn.Module):
 
     def forward(self, frames: torch.Tensor, cubes: torch.Tensor):
         cam = self.frames_program.camera
-        coms = device_detect_batch(frames, cubes, cam.fx, cam.fy)
+        with span("detect"):
+            coms = device_detect_batch(frames, cubes, cam.fx, cam.fy)
         return self.frames_program(frames, coms, cubes), coms
 
 
@@ -140,11 +156,12 @@ class PoseEstimator:
     def _frames(self, frames) -> torch.Tensor:
         """uint16 millimetre frames pass through as uint16; everything else
         becomes float32.  On the estimator's device."""
-        if not isinstance(frames, torch.Tensor):
-            frames = torch.from_numpy(np.ascontiguousarray(frames))
-        if frames.dtype != torch.uint16:
-            frames = frames.to(torch.float32)
-        return frames.to(self.device).contiguous()
+        with span("h2d"):
+            if not isinstance(frames, torch.Tensor):
+                frames = torch.from_numpy(np.ascontiguousarray(frames))
+            if frames.dtype != torch.uint16:
+                frames = frames.to(torch.float32)
+            return frames.to(self.device).contiguous()
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -184,9 +201,10 @@ class PoseEstimator:
     def predict_frames(self, frames, coms, cubes) -> torch.Tensor:
         """Raw (B, H, W) frames + (B, 3) CoMs + (B, 3) cubes -> (B, J, 3)
         metric joints (mm).  ``frames`` may be uint16 millimetre depth."""
-        return self._sharded(lambda r, *a: r.frames(*a),
-                             self._frames(frames), self._f32(coms),
-                             self._f32(cubes))
+        with span("predict"):
+            return self._sharded(lambda r, *a: r.frames(*a),
+                                 self._frames(frames), self._f32(coms),
+                                 self._f32(cubes))
 
     def predict_frame(self, frame, com, cube) -> torch.Tensor:
         return self.predict_frames(torch.as_tensor(frame)[None],
@@ -200,12 +218,13 @@ class PoseEstimator:
         frame.  A frame where detection fails gets a zero CoM and so
         degenerate joints; ``return_coms=True`` lets callers screen them.
         ``frames`` may be uint16 millimetre depth."""
-        frames = self._frames(frames)
-        if cubes is None:
-            cubes = torch.full((frames.shape[0], 3), DEFAULT_CUBE_MM,
-                               dtype=torch.float32, device=self.device)
-        joints, coms = self._sharded(lambda r, *a: r.raw(*a), frames,
-                                     self._f32(cubes))
+        with span("predict"):
+            frames = self._frames(frames)
+            if cubes is None:
+                cubes = torch.full((frames.shape[0], 3), DEFAULT_CUBE_MM,
+                                   dtype=torch.float32, device=self.device)
+            joints, coms = self._sharded(lambda r, *a: r.raw(*a), frames,
+                                         self._f32(cubes))
         return (joints, coms) if return_coms else joints
 
 

@@ -23,6 +23,11 @@ under ``pjit``: each update takes the global batch and the global-shaped
 draws, computes on this rank's rows, and averages the gradients over the
 ranks before the optimizer step (``_apply``), so that N ranks take the
 step one process takes on the global batch.
+
+Under a recording profiler an update opens the spans ``lsps.augment`` (the
+fused-augment updates' two raw batches), ``lsps.dis`` / ``lsps.gen`` (the
+whole discriminator or generator update) and, in each, ``lsps.backward``
+and ``lsps.optim`` (``utils/logging.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from lsps_tpu_torch.parallel.mesh import DataMesh, RowDraws
 from lsps_tpu_torch.registry import register
 from lsps_tpu_torch.train import checkpoint as ckpt
 from lsps_tpu_torch.train import optim
+from lsps_tpu_torch.utils.logging import span
 
 NoiseDict = Optional[Mapping[str, torch.Tensor]]
 
@@ -355,12 +361,14 @@ class LSPSTrainer:
         (the optimizer's parameters or their compute-dtype copies, in
         its order), cast to the parameters' dtype and, under a mesh,
         averaged over the ranks."""
-        grads = torch.autograd.grad(loss, list(wrt), allow_unused=True)
-        grads = [None if g is None else g.to(p.dtype)
-                 for g, p in zip(grads, opt.params)]
-        if self.mesh is not None:
-            self.mesh.allreduce_mean_(grads)
-        opt.step(grads)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(wrt), allow_unused=True)
+        with span("optim"):
+            grads = [None if g is None else g.to(p.dtype)
+                     for g, p in zip(grads, opt.params)]
+            if self.mesh is not None:
+                self.mesh.allreduce_mean_(grads)
+            opt.step(grads)
 
     def _gen_fwd(self, gen, xa, xb, noise):
         """The generator's joint pass, (x_aa, x_ba, x_ab, x_bb, shared).
@@ -423,69 +431,70 @@ class LSPSTrainer:
     def _gen(self, xa, la, xb, lb, noise: NoiseDict = None):
         """``gen_update`` on this rank's rows (tensors on the device);
         the metrics are the rank's."""
-        hyp = self.hyp
-        noise = self._local_noise(noise or {}, xa.shape[0])
-        g = self._draws(xa.shape[0])
-        gen, dis, mp = self._compute_nets()
-        lr = self.gen_opt.current_lr()
+        with span("gen"):
+            hyp = self.hyp
+            noise = self._local_noise(noise or {}, xa.shape[0])
+            g = self._draws(xa.shape[0])
+            gen, dis, mp = self._compute_nets()
+            lr = self.gen_opt.current_lr()
 
-        x_aa, x_ba, x_ab, x_bb, shared = self._gen_fwd(
-            gen, self._cd(xa), self._cd(xb), noise.get("gen"))
-        x_bab, shared_bab = gen.forward_a2b(x_ba, noise=noise.get("a2b"),
-                                            generator=g)
-        x_aba, shared_aba = gen.forward_b2a(x_ab, noise=noise.get("b2a"),
-                                            generator=g)
-        zero = xa.new_zeros(())
-        if self.train_map:
-            labels = torch.cat([la, lb])
-            z_p2d = mp(self._cd(self._encode_pose(labels, noise.get("vae"),
-                                                  xa.shape[0])))
-            dec_a_full, dec_b_full = gen.decode(z_p2d)
-            half = dec_a_full.shape[0] // 2
-            decode_a, decode_b = dec_a_full[:half], dec_b_full[half:]
-            data_a = torch.cat([x_ba, decode_a])
-            data_b = torch.cat([x_ab, decode_b])
-            matching_z = l2_loss(shared, z_p2d)
-            matching_a = l1_loss(decode_a, xa)
-            matching_b = l1_loss(decode_b, xb)
-        else:
-            data_a, decode_a = x_ba, x_ba
-            data_b, decode_b = x_ab, x_ab
-            matching_z = matching_a = matching_b = zero
+            x_aa, x_ba, x_ab, x_bb, shared = self._gen_fwd(
+                gen, self._cd(xa), self._cd(xb), noise.get("gen"))
+            x_bab, shared_bab = gen.forward_a2b(x_ba, noise=noise.get("a2b"),
+                                                generator=g)
+            x_aba, shared_aba = gen.forward_b2a(x_ab, noise=noise.get("b2a"),
+                                                generator=g)
+            zero = xa.new_zeros(())
+            if self.train_map:
+                labels = torch.cat([la, lb])
+                z_p2d = mp(self._cd(self._encode_pose(labels, noise.get("vae"),
+                                                      xa.shape[0])))
+                dec_a_full, dec_b_full = gen.decode(z_p2d)
+                half = dec_a_full.shape[0] // 2
+                decode_a, decode_b = dec_a_full[:half], dec_b_full[half:]
+                data_a = torch.cat([x_ba, decode_a])
+                data_b = torch.cat([x_ab, decode_b])
+                matching_z = l2_loss(shared, z_p2d)
+                matching_a = l1_loss(decode_a, xa)
+                matching_b = l1_loss(decode_b, xb)
+            else:
+                data_a, decode_a = x_ba, x_ba
+                data_b, decode_b = x_ab, x_ab
+                matching_z = matching_a = matching_b = zero
 
-        outs_a, outs_b, _, _ = dis(data_a, data_b)
-        ad_loss_a = bce_logits_vs_ones(outs_a)
-        ad_loss_b = bce_logits_vs_ones(outs_b)
-        enc_loss = kl_loss(shared)
-        enc_bab = kl_loss(shared_bab)
-        enc_aba = kl_loss(shared_aba)
-        ll_a = l1_loss(x_aa, xa)
-        ll_b = l1_loss(x_bb, xb)
-        ll_aba = l1_loss(x_aba, xa)
-        ll_bab = l1_loss(x_bab, xb)
-        total = (hyp["gan_w"] * (ad_loss_a + ad_loss_b)
-                 + hyp["ll_direct_link_w"] * (ll_a + ll_b)
-                 + hyp["ll_cycle_link_w"] * (ll_aba + ll_bab)
-                 + hyp["kl_direct_link_w"] * (enc_loss + enc_loss)
-                 + hyp["kl_cycle_link_w"] * (enc_bab + enc_aba)
-                 + hyp["ll_map_z_w"] * matching_z
-                 + hyp["ll_map_w"] * (matching_a + matching_b))
-        self._apply(self.gen_opt, total,
-                    [*gen.parameters(), *mp.parameters()])
-        metrics = {
-            "gen_enc_loss": enc_loss,
-            "gen_enc_loss2": enc_aba + enc_bab,
-            "gen_ad_loss": ad_loss_a + ad_loss_b,
-            "gen_ll_loss": ll_a + ll_b,
-            "gen_ll_loss2": ll_bab + ll_aba,
-            "gen_map_loss": matching_z,
-            "gen_map_loss2": matching_a + matching_b,
-            "gen_total_loss": total,
-        }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["gen_lr"] = lr
-        outs = (x_aa, x_ba, x_ab, x_bb, x_aba, x_bab, decode_a, decode_b)
-        return metrics, tuple(self._out(o) for o in outs)
+            outs_a, outs_b, _, _ = dis(data_a, data_b)
+            ad_loss_a = bce_logits_vs_ones(outs_a)
+            ad_loss_b = bce_logits_vs_ones(outs_b)
+            enc_loss = kl_loss(shared)
+            enc_bab = kl_loss(shared_bab)
+            enc_aba = kl_loss(shared_aba)
+            ll_a = l1_loss(x_aa, xa)
+            ll_b = l1_loss(x_bb, xb)
+            ll_aba = l1_loss(x_aba, xa)
+            ll_bab = l1_loss(x_bab, xb)
+            total = (hyp["gan_w"] * (ad_loss_a + ad_loss_b)
+                     + hyp["ll_direct_link_w"] * (ll_a + ll_b)
+                     + hyp["ll_cycle_link_w"] * (ll_aba + ll_bab)
+                     + hyp["kl_direct_link_w"] * (enc_loss + enc_loss)
+                     + hyp["kl_cycle_link_w"] * (enc_bab + enc_aba)
+                     + hyp["ll_map_z_w"] * matching_z
+                     + hyp["ll_map_w"] * (matching_a + matching_b))
+            self._apply(self.gen_opt, total,
+                        [*gen.parameters(), *mp.parameters()])
+            metrics = {
+                "gen_enc_loss": enc_loss,
+                "gen_enc_loss2": enc_aba + enc_bab,
+                "gen_ad_loss": ad_loss_a + ad_loss_b,
+                "gen_ll_loss": ll_a + ll_b,
+                "gen_ll_loss2": ll_bab + ll_aba,
+                "gen_map_loss": matching_z,
+                "gen_map_loss2": matching_a + matching_b,
+                "gen_total_loss": total,
+            }
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["gen_lr"] = lr
+            outs = (x_aa, x_ba, x_ab, x_bb, x_aba, x_bab, decode_a, decode_b)
+            return metrics, tuple(self._out(o) for o in outs)
 
     # ------------------------------------------------------------------
     # discriminator update
@@ -503,61 +512,62 @@ class LSPSTrainer:
              noise: NoiseDict = None):
         """``dis_update`` on this rank's rows; the metrics are the
         rank's."""
-        hyp = self.hyp
-        noise = self._local_noise(noise or {}, xa.shape[0])
-        gen, dis, mp = self._compute_nets()
-        xa, xb = self._cd(xa), self._cd(xb)
-        lr = self.dis_opt.current_lr()
+        with span("dis"):
+            hyp = self.hyp
+            noise = self._local_noise(noise or {}, xa.shape[0])
+            gen, dis, mp = self._compute_nets()
+            xa, xb = self._cd(xa), self._cd(xb)
+            lr = self.dis_opt.current_lr()
 
-        with torch.no_grad():
-            x_aa, x_ba, x_ab, x_bb, _ = self._gen_fwd(gen, xa, xb,
-                                                      noise.get("gen"))
+            with torch.no_grad():
+                x_aa, x_ba, x_ab, x_bb, _ = self._gen_fwd(gen, xa, xb,
+                                                          noise.get("gen"))
+                if self.train_map:
+                    labels = torch.cat([la, lb])
+                    z_p2d = mp(self._cd(self._encode_pose(
+                        labels, noise.get("vae"), xa.shape[0])))
+                    dec_a_full, dec_b_full = gen.decode(z_p2d)
+                    half = dec_a_full.shape[0] // 2
+                    data_a = torch.cat([xa, x_ba, x_aa, dec_a_full[:half]])
+                    data_b = torch.cat([xb, x_ab, x_bb, dec_b_full[half:]])
+                    ndiv = 4
+                elif feat_mat:
+                    data_a = torch.cat([xa, x_ba, x_aa])
+                    data_b = torch.cat([xb, x_ab, x_bb])
+                    ndiv = 3
+                else:
+                    data_a = torch.cat([xa, x_ba])
+                    data_b = torch.cat([xb, x_ab])
+                    ndiv = 2
+
+            res_a, res_b, feats_a, feats_b = dis(data_a, data_b)
+            zero = _f32(res_a.new_zeros(()))
+            feature_loss_a = feature_loss_b = zero
+            if feat_mat:
+                fa, fb = _split(feats_a, ndiv), _split(feats_b, ndiv)
+                feature_loss_a = l1_loss(fb[1] - fa[2])
+                feature_loss_b = l1_loss(fa[1] - fb[2])
+            ra, rb = _split(res_a, ndiv), _split(res_b, ndiv)
+            ad_dec_a = ad_dec_b = zero
             if self.train_map:
-                labels = torch.cat([la, lb])
-                z_p2d = mp(self._cd(self._encode_pose(
-                    labels, noise.get("vae"), xa.shape[0])))
-                dec_a_full, dec_b_full = gen.decode(z_p2d)
-                half = dec_a_full.shape[0] // 2
-                data_a = torch.cat([xa, x_ba, x_aa, dec_a_full[:half]])
-                data_b = torch.cat([xb, x_ab, x_bb, dec_b_full[half:]])
-                ndiv = 4
-            elif feat_mat:
-                data_a = torch.cat([xa, x_ba, x_aa])
-                data_b = torch.cat([xb, x_ab, x_bb])
-                ndiv = 3
-            else:
-                data_a = torch.cat([xa, x_ba])
-                data_b = torch.cat([xb, x_ab])
-                ndiv = 2
-
-        res_a, res_b, feats_a, feats_b = dis(data_a, data_b)
-        zero = _f32(res_a.new_zeros(()))
-        feature_loss_a = feature_loss_b = zero
-        if feat_mat:
-            fa, fb = _split(feats_a, ndiv), _split(feats_b, ndiv)
-            feature_loss_a = l1_loss(fb[1] - fa[2])
-            feature_loss_b = l1_loss(fa[1] - fb[2])
-        ra, rb = _split(res_a, ndiv), _split(res_b, ndiv)
-        ad_dec_a = ad_dec_b = zero
-        if self.train_map:
-            ad_dec_a = bce_logits_vs_zeros(ra[3])
-            ad_dec_b = bce_logits_vs_zeros(rb[3])
-        ad_loss_a = (bce_logits_vs_ones(ra[0]) + bce_logits_vs_zeros(ra[1])
-                     + ad_dec_a)
-        ad_loss_b = (bce_logits_vs_ones(rb[0]) + bce_logits_vs_zeros(rb[1])
-                     + ad_dec_b)
-        loss = (hyp["gan_w"] * (ad_loss_a + ad_loss_b)
-                + hyp["feature_w"] * (feature_loss_a + feature_loss_b))
-        self._apply(self.dis_opt, loss, list(dis.parameters()))
-        metrics = {
-            "dis_ad_loss": (ad_loss_a + ad_loss_b).detach(),
-            "dis_feat_loss": (feature_loss_a + feature_loss_b).detach(),
-            "dis_loss": loss.detach(),
-            "dis_true_acc": 0.5 * (true_acc(ra[0]) + true_acc(rb[0])),
-            "dis_fake_acc": 0.5 * (fake_acc(ra[1]) + fake_acc(rb[1])),
-            "dis_lr": lr,
-        }
-        return metrics, None
+                ad_dec_a = bce_logits_vs_zeros(ra[3])
+                ad_dec_b = bce_logits_vs_zeros(rb[3])
+            ad_loss_a = (bce_logits_vs_ones(ra[0]) + bce_logits_vs_zeros(ra[1])
+                         + ad_dec_a)
+            ad_loss_b = (bce_logits_vs_ones(rb[0]) + bce_logits_vs_zeros(rb[1])
+                         + ad_dec_b)
+            loss = (hyp["gan_w"] * (ad_loss_a + ad_loss_b)
+                    + hyp["feature_w"] * (feature_loss_a + feature_loss_b))
+            self._apply(self.dis_opt, loss, list(dis.parameters()))
+            metrics = {
+                "dis_ad_loss": (ad_loss_a + ad_loss_b).detach(),
+                "dis_feat_loss": (feature_loss_a + feature_loss_b).detach(),
+                "dis_loss": loss.detach(),
+                "dis_true_acc": 0.5 * (true_acc(ra[0]) + true_acc(rb[0])),
+                "dis_fake_acc": 0.5 * (fake_acc(ra[1]) + fake_acc(rb[1])),
+                "dis_lr": lr,
+            }
+            return metrics, None
 
     # ------------------------------------------------------------------
     def pretrain_update(self, images_a, labels_a, images_b, labels_b,
@@ -667,8 +677,9 @@ class LSPSTrainer:
         """``update`` (a rank-local step) on the augmented rows of the raw
         tuples; returns the reduced metrics and, with ``viz``, (outputs,
         the rank's images_a, images_b)."""
-        images_a = self._augment(self._rows(raw_a))
-        images_b = self._augment(self._rows(raw_b))
+        with span("augment"):
+            images_a = self._augment(self._rows(raw_a))
+            images_b = self._augment(self._rows(raw_b))
         la, lb = self._batch(labels_a, labels_b)
         met, outs = update(self._to(images_a), la, self._to(images_b), lb,
                            **kw)

@@ -8,6 +8,32 @@ Metrics go to ``metrics.jsonl`` only (the JAX package's fallback when
 tensorboardX is missing; the card's machine has none).
 ``profile_trace`` wraps ``torch.profiler`` and writes a Chrome trace into
 ``--profile-dir``.
+
+``span(name)`` is a ``lsps.<name>`` range in a torch.profiler trace, on
+the clock of the kernels and copies: the trace attributes each kernel to
+the span it was launched in, and each idle gap of the card to the span
+the host was in.  A span records only while a profiler records (the
+``--profile-dir`` trace, a benchmark's profiled window) and only on the
+thread that opens it; at any other time, and while ``torch.export`` or
+``torch.compile`` traces, it is one shared no-op context.  The spans,
+opened only on the thread that calls into the port:
+
+* ``lsps.predict``: ``PoseEstimator.predict_frames`` and ``predict_raw``,
+  the whole call (the joints stay on the device);
+* ``lsps.h2d``: the estimator's frames copied to its device;
+* ``lsps.detect``: ``RawProgram``'s CoM detection;
+* ``lsps.crop``, ``lsps.regress``, ``lsps.decode``: ``FramesProgram``'s
+  crop kernel, regressor, and pose decode with the denormalize;
+* ``lsps.augment``: the trainer's fused augment of both raw batches,
+  their copy to the device included;
+* ``lsps.dis``, ``lsps.gen``: a discriminator and a generator update,
+  forward, losses, backward and optimizer step;
+* ``lsps.backward``: the gradients of an update (under remat with the
+  recompute);
+* ``lsps.optim``: the gradients' cast and the optimizer step (under a
+  mesh with the all-reduce between them);
+* ``lsps.loader_wait``: a ``DataLoader`` consumer's blocking wait on an
+  empty prefetch queue (``data/loader.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +45,8 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 IMAGE_EXT = ".png"  # the JAX package writes .jpg through cv2
 
@@ -120,7 +148,6 @@ def profile_trace(logdir: Optional[str]):
     if logdir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -130,6 +157,18 @@ def profile_trace(logdir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``lsps.<name>`` range while a torch profiler records and nothing
+    traces the program; else the shared no-op context."""
+    if (not _autograd_profiler._is_profiler_enabled
+            or torch.compiler.is_compiling()):
+        return _NO_SPAN
+    return torch.profiler.record_function("lsps." + name)
 
 
 class StepTimer:
