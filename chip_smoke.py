@@ -190,7 +190,16 @@ JAX or ``lsps_tpu``.  Phases, each of which must pass:
     limit: two ranks sharing one card, not a scaling figure (``python3
     chip_smoke.py --dp-cards`` runs parts (a) and (f) with one NCCL rank
     on each card of a machine with several);
-16. print the ``kernels`` line, the card's name and power limit, and last
+16. the detection kernel (``lsps::detect_coms``, ``csrc/detect.cu``)
+    against its plain version on the card over phase 14's hands at batch
+    1, 32 and 256, float32 and uint16 (u and v equal, z within 128 ulps,
+    two calls bit-identical, one counted launch a call), then its device
+    ms a call on uint16 frames with the frames warm and cold in L2,
+    beside two reads of the frames at 3.35 TB/s and the plain version's
+    ms and the kernels a call counted in the trace (4 + refine_iters);
+    run right after phase 14's CoM sweep (``python3 chip_smoke.py
+    --detect`` runs the build and this phase alone);
+17. print the ``kernels`` line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Without a CUDA device,
@@ -356,9 +365,9 @@ def profile_kernels(torch, fn, iters=10, tries=6, symbol=None):
     all, or, given ``symbol``, fewer launches of the kernel whose name
     holds it than calls, is taken again (and logged), up to ``tries``
     times: the profiler on the card's machine has returned an empty trace
-    for a call that launches a kernel, three times in a row once, and a
-    trace holding fewer launches than calls, where the same call traced
-    in full in every other run."""
+    for a call that launches a kernel, three times in a row once.  Each
+    trace opens with LEAD_IN launches that it leaves out (see
+    ``_profile_once``)."""
     for attempt in range(tries):
         by_name, dev_ms, wall = _profile_once(torch, fn, iters)
         if by_name and (symbol is None or round(
@@ -373,6 +382,16 @@ def launches_of(by_name, symbol):
     return sum(n for name, (_, n) in by_name.items() if symbol in name)
 
 
+# torch.profiler on the card's machine loses the first device activities
+# of a trace: none in a young process, then more as it ages (4 launches a
+# trace after one minute, 8 after two), in a process that only ever ran
+# two ATen kernels and the crop kernel, and also where the first launch
+# came 20 ms after the trace opened.  So each trace opens with this many
+# spin kernels, synchronized and left out of the counts.
+LEAD_IN = 64
+LEAD_IN_KERNEL = "spin_kernel"
+
+
 def _profile_once(torch, fn, iters):
     from torch.profiler import ProfilerActivity, profile
 
@@ -380,6 +399,9 @@ def _profile_once(torch, fn, iters):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -387,7 +409,8 @@ def _profile_once(torch, fn, iters):
         wall = (time.perf_counter() - t0) * 1e3 / iters
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                LEAD_IN_KERNEL not in e.name:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / iters,
                                n + 1 / iters)
@@ -729,12 +752,15 @@ def phase_serve(torch, dev, hyp, sd, kernels):
             if n == 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"main path")
-        # four calls per request, each one crop_normalize launch; the
+        # four calls per request, each one crop_normalize launch, two of
+        # them predict_raw with one detection launch each; the
         # loaded-index entry is off the main path
-        if launches["crop_normalize"] != 4 * len(reqs) or loaded_launches:
-            raise AssertionError(f"crop launches {launches}, warp_normalize "
+        if launches["crop_normalize"] != 4 * len(reqs) or loaded_launches \
+                or launches["device_detect_batch"] != 2 * len(reqs):
+            raise AssertionError(f"launches {launches}, warp_normalize "
                                  f"{loaded_launches}: the main path gives "
-                                 f"{4 * len(reqs)} and 0")
+                                 f"{4 * len(reqs)} crops, "
+                                 f"{2 * len(reqs)} detections and 0")
 
         cpu_est = PoseEstimator(hyp, sd, device="cpu")
         worst = 0.0
@@ -3304,6 +3330,20 @@ def com_hands(n, seed):
     return frames
 
 
+def com_gap_ulps(got, want, what):
+    """u and v equal and z within COM_Z_ULPS float32 ulps of ``want``'s z;
+    returns the worst z gap in ulps."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.array_equal(got[:, :2], want[:, :2]):
+        raise AssertionError(f"{what}: u, v differ, max "
+                             f"{np.abs(got[:, :2] - want[:, :2]).max()} px")
+    gap = np.abs(got[:, 2] - want[:, 2]) / np.spacing(
+        np.abs(want[:, 2]).astype(np.float32))
+    if gap.max() > COM_Z_ULPS:
+        raise AssertionError(f"{what}: z {gap.max()} ulps > {COM_Z_ULPS}")
+    return float(gap.max())
+
+
 def phase_com(torch, dev, cam):
     """``device_detect_batch`` over COM_HANDS seeded random hands on the
     card and on the CPU: u and v equal, z within COM_Z_ULPS float32 ulps
@@ -3325,18 +3365,109 @@ def phase_com(torch, dev, cam):
         raise AssertionError(f"CoM sweep: {np.sum(card[:, 2] <= 0)} hands "
                              f"undetected on the card, "
                              f"{np.sum(cpu[:, 2] <= 0)} on the CPU")
-    if not np.array_equal(card[:, :2], cpu[:, :2]):
-        raise AssertionError(f"CoM sweep: u, v card != CPU, max "
-                             f"{np.abs(card[:, :2] - cpu[:, :2]).max()} px")
-    gap = np.abs(card[:, 2] - cpu[:, 2]) / np.spacing(cpu[:, 2])
+    gap = com_gap_ulps(card, cpu, "CoM sweep, card vs CPU")
     log(f"CoM sweep: {COM_HANDS} hands (rendered in {render_s:.1f} s), u, v "
-        f"card == CPU; z gap max {gap.max():.0f} float32 ulps, median "
-        f"{np.median(gap):.1f} (bound {COM_Z_ULPS}); "
-        f"{time.perf_counter() - t0:.1f} s")
-    if gap.max() > COM_Z_ULPS:
-        raise AssertionError(f"CoM sweep: z card vs CPU {gap.max()} ulps > "
-                             f"{COM_Z_ULPS}")
-    return float(gap.max())
+        f"card == CPU; z gap max {gap:.0f} float32 ulps (bound "
+        f"{COM_Z_ULPS}); {time.perf_counter() - t0:.1f} s")
+    return gap
+
+
+DETECT_BATCHES = (1, 32, 256)
+DETECT_KERNELS = 9          # 4 + refine_iters (5) launches
+DETECT_ITERS = 10           # calls a trace
+
+
+def kernel_name(name):
+    """``detect_box_kernel`` out of a mangled kernel name."""
+    import re
+
+    m = re.search(r"detect_\w*?kernel", name)
+    return m.group(0) if m else name
+
+
+def phase_detect(torch, dev, cam):
+    """The detection kernel (the op ``lsps::detect_coms``) against its
+    plain version on the card, over the COM_HANDS sweep hands at batch 1,
+    32 and 256, float32 and whole-mm uint16 frames: u and v equal, z within
+    COM_Z_ULPS, one counted launch a call, two calls bit-identical.  Then
+    timed on uint16 frames (the serving cells'): device ms a call from
+    torch.profiler with the same frames each call (warm) and rotating
+    over COLD_BYTES of copies (cold in L2), beside the bound of two reads
+    of the frames, and the plain version's device ms.  Returns (timing
+    rows, the worst z gap in ulps)."""
+    from lsps_tpu_torch.serve import detect as D
+
+    frames = com_hands(COM_HANDS, seed=0)
+    rows, worst = [], 0.0
+    for b in DETECT_BATCHES:
+        cu = torch.full((b, 3), CUBE_MM, device=dev)
+        for kind, f in (("f32", frames[:b]),
+                        ("u16", whole_mm_u16(frames[:b]))):
+            ft = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+            call = functools.partial(D.device_detect_batch, ft, cu, cam.fx,
+                                     cam.fy)
+            plain = functools.partial(D.device_detect_batch_reference, ft,
+                                      cu, cam.fx, cam.fy)
+            before = D.device_detect_batch.launches
+            got = call()
+            torch.cuda.synchronize()
+            counted = D.device_detect_batch.launches - before
+            if counted != 1:
+                raise AssertionError(f"detect B={b}: {counted} launches "
+                                     f"counted for one call")
+            if not torch.equal(got, call()):
+                raise AssertionError(f"detect B={b} {kind}: two calls differ")
+            want = plain()
+            if not bool((got[:, 2] > 0).all()):
+                raise AssertionError(f"detect B={b} {kind}: a hand missed")
+            gap = com_gap_ulps(got.cpu(), want.cpu(),
+                               f"detect B={b} {kind}, kernel vs plain")
+            worst = max(worst, gap)
+            if kind == "f32":
+                continue
+            by_name, dev_ms, _ = profile_kernels(torch, call,
+                                                 iters=DETECT_ITERS,
+                                                 symbol="detect_finalize")
+            kernels = launches_of(by_name, "detect_")
+            if round(kernels, 6) != DETECT_KERNELS:
+                raise AssertionError(f"detect B={b}: {kernels:g} kernels a "
+                                     f"call in the trace, not "
+                                     f"{DETECT_KERNELS}")
+            n, turn = rotating(ft)
+
+            def cold():
+                return D.device_detect_batch(next(turn), cu, cam.fx, cam.fy)
+
+            for _ in range(n):  # each copy next read after n - 1 others
+                cold()
+            _, cold_ms, _ = profile_kernels(torch, cold, iters=DETECT_ITERS,
+                                            symbol="detect_finalize")
+            del turn
+            _, plain_ms, _ = profile_kernels(torch, plain, iters=2)
+            row = {"batch": b, "frames": kind, "ms": dev_ms,
+                   "cold_ms": cold_ms,
+                   "call_ms": cuda_ms(torch, call, 4 * DETECT_ITERS),
+                   "host_ms": host_ms(torch, call, 4 * DETECT_ITERS),
+                   "plain_ms": plain_ms,
+                   "plain_host_ms": host_ms(torch, plain, 3),
+                   "kernels_per_call": kernels,
+                   "by_kernel": {kernel_name(k): v[0]
+                                 for k, v in by_name.items()},
+                   "z_gap_ulps": gap,
+                   **bound(2 * ft.numel() * ft.element_size(), 0)}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["cold_share_of_bound"] = row["bound_ms"] / row["cold_ms"]
+            rows.append(row)
+            log(f"detect B={b} {kind}: {row['ms']:.5f} ms device, cold "
+                f"{row['cold_ms']:.5f}, bound {row['bound_ms']:.5f} "
+                f"({row['share_of_bound']:.1%}, cold "
+                f"{row['cold_share_of_bound']:.1%}), plain "
+                f"{row['plain_ms']:.3f} ms; host {row['host_ms']:.4f} ms a "
+                f"call (plain {row['plain_host_ms']:.3f}); {kernels:g} "
+                f"kernels a call in the trace")
+    log(f"detect: kernel vs plain on the card, B={DETECT_BATCHES}, float32 "
+        f"and uint16: u, v equal, z within {worst:.0f} ulps")
+    return rows, worst
 
 
 def http(url, path, body=None, npz=False):
@@ -4776,6 +4907,7 @@ def main() -> int:
     from lsps_tpu_torch.config import load_config
     from lsps_tpu_torch.data.camera import Camera
     from lsps_tpu_torch.ops.kernels.warp import crop_normalize
+    from lsps_tpu_torch.serve.detect import device_detect_batch
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -4784,7 +4916,8 @@ def main() -> int:
     cam = Camera.nyu()
     hyp = load_config(str(Path(__file__).resolve().parent / "exps"
                           / "nnyu.yaml")).hyperparameters
-    kernels = {"crop_normalize": crop_normalize}
+    kernels = {"crop_normalize": crop_normalize,
+               "device_detect_batch": device_detect_batch}
 
     # host seconds by phase: the script's time limit is shared by all
     marks = [("start", time.perf_counter())]
@@ -4800,8 +4933,9 @@ def main() -> int:
     sd = seeded_state_dict(hyp, seed=0)
     launches, loaded_launches, _ = phase_serve(torch, dev, hyp, sd, kernels)
     com_gap = phase_com(torch, dev, cam)
+    detect_rows, detect_gap = phase_detect(torch, dev, cam)
     timing = phase_timing(torch, dev, hyp, sd)
-    mark("serve, com, serve timing")
+    mark("serve, com, detect, serve timing")
     track_row, track_launches, track_data = phase_track(torch, dev, hyp, sd)
     mark("track")
     plots_row = phase_plots(torch, dev, track_data)
@@ -4864,6 +4998,7 @@ def main() -> int:
     path_launches.update(dp_launches)
 
     log("warp timing " + json.dumps(warp_rows))
+    log("detect timing " + json.dumps(detect_rows))
     log("serve timing " + json.dumps(timing))
     log("norm timing " + json.dumps(norm_rows))
     log("train timing " + json.dumps(train_rows))
@@ -4898,7 +5033,8 @@ def main() -> int:
                     and r["batch"] == b and r["frames"] == "f32")
 
     log("library_ms: null for crop_normalize and its loaded-index entry: "
-        "no single PyTorch call gathers, clamps and normalizes a crop")
+        "no single PyTorch call gathers, clamps and normalizes a crop; "
+        "null for detect_coms: no single PyTorch call detects")
     log("library_ms: F.instance_norm for in_act_forward (timed at slope "
         "None, the function it computes; ms_slope_none beside it); null "
         "for in_act_backward, in_res_forward and in_res_backward: no "
@@ -4949,6 +5085,26 @@ def main() -> int:
                            "launches_on_main_path": loaded_launches,
                            **{k: loaded_row[k] for k in keys}},
     }]
+    detect_row = {r["batch"]: r for r in detect_rows}
+    rows.append({
+        "name": "detect_coms", "route": "cuda",
+        "source": "lsps_tpu_torch/csrc/detect.cu",
+        "replaces": "none: lsps_tpu/serve/detect_jax.py is XLA ops, no "
+                    "Pallas kernel",
+        "launches": launches["device_detect_batch"],
+        "kernels_per_call_by_batch": {b: r["kernels_per_call"]
+                                      for b, r in detect_row.items()},
+        "max_z_gap_ulps": detect_gap,
+        "at": "uint16 640x480 frames (the serving cells'), sweep hands",
+        "ms_by_batch": {b: r["ms"] for b, r in detect_row.items()},
+        "cold_ms_by_batch": {b: r["cold_ms"] for b, r in detect_row.items()},
+        # two reads of the frames at the published 3.35 TB/s
+        "bound_ms_by_batch": {b: r["bound_ms"]
+                              for b, r in detect_row.items()},
+        "plain_ms_by_batch": {b: r["plain_ms"]
+                              for b, r in detect_row.items()},
+        "library_ms": None,
+    })
     for name, replaces in NORM_REPLACES.items():
         r = next(r for r in norm_rows if r["kernel"] == name
                  and r["shape"][0] == hyp["batch_size"]
@@ -4992,6 +5148,17 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--detect"]:
+        import torch
+
+        from lsps_tpu_torch.data.camera import Camera
+
+        torch.cuda.set_device(0)
+        phase_build()
+        rows, _ = phase_detect(torch, torch.device("cuda:0"), Camera.nyu())
+        log("detect timing " + json.dumps(rows))
+        log(gpu_name_and_power())
+        sys.exit(0)
     if sys.argv[1:2] == ["--dp-cards"]:
         import torch
 

@@ -12,10 +12,11 @@ are float32 or whole-millimetre uint16.
 Deviations from the JAX package:
 
 * the artifact is a PyTorch ``.pt2`` (``torch.export.save``), not
-  serialized StableHLO.  The crop kernel is the registered op
-  ``lsps::crop_normalize`` (``ops/kernels/warp.py``), so the artifact
-  loads only where ``lsps_tpu_torch`` is importable and, on the card, its
-  kernel library builds; ``load_pose_program`` imports the op first;
+  serialized StableHLO.  The crop kernel and the detection kernel are the
+  registered ops ``lsps::crop_normalize`` (``ops/kernels/warp.py``) and
+  ``lsps::detect_coms`` (``serve/detect.py``), so the artifact loads only
+  where ``lsps_tpu_torch`` is importable and, on the card, their kernel
+  libraries build; ``load_pose_program`` imports the ops first;
 * ``--platforms`` has no counterpart: the program runs on the device it
   was exported on, and ``load_pose_program(path, device=)`` moves it to
   another one explicitly;
@@ -96,7 +97,8 @@ def load_pose_program(path: str, device=None):
     """Load a saved program: ``(ExportedProgram, metadata)``.  A file
     without the format tag is refused.  ``device`` moves the program to
     another device than the one it was exported on."""
-    import lsps_tpu_torch.ops.kernels.warp  # noqa: F401  (the op)
+    import lsps_tpu_torch.ops.kernels.warp  # noqa: F401  (the ops)
+    import lsps_tpu_torch.serve.detect  # noqa: F401
 
     extra = {_META: ""}
     try:

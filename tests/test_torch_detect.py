@@ -22,6 +22,13 @@ hands each and prints the worst gap of each seed: 90, 119, 91, 105, 99,
 ``COM_Z_ULPS`` is the worst, rounded up to a power of two.  The slice
 choice, the rounded blob centroid and the crop bounds are exact integers
 and agree exactly.
+
+``device_detect_batch`` goes through the registered op
+``lsps::detect_coms``: on the CPU its implementation is the plain
+version, bit for bit; its fake gives a (B, 3) CoM for a symbolic batch, so
+``torch.export`` keeps the raw program's batch symbolic with the op as one
+node.  The CUDA kernel is held against the plain version on the card in
+``tests/test_torch_detect_cuda.py``.
 """
 
 import numpy as np
@@ -31,7 +38,9 @@ import torch
 from lsps_tpu.data.camera import Camera
 from lsps_tpu.data.synthetic import render_hand_depth
 from lsps_tpu.serve.detect_jax import device_detect_batch as jax_detect
-from lsps_tpu_torch.serve.detect import device_detect, device_detect_batch
+from lsps_tpu_torch.serve.detect import (FIRST_SLICE, device_detect,
+                                         device_detect_batch,
+                                         device_detect_batch_reference)
 
 torch.set_num_threads(1)
 
@@ -132,6 +141,84 @@ def test_single_frame_and_uint16():
     u16 = device_detect_batch(torch.from_numpy(frames.astype(np.uint16)),
                               cube.expand(2, 3), CAM.fx, CAM.fy)
     assert torch.equal(u16, batch)
+
+
+FRAME_SETS = {
+    "hands": lambda: _frames(3),
+    "empty": lambda: np.zeros((1, 480, 640), np.float32),
+    "speckle": lambda: _speckle()[None],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint16])
+@pytest.mark.parametrize("name", sorted(FRAME_SETS))
+def test_op_on_the_cpu_is_the_plain_version(name, dtype):
+    """``torch.ops.lsps.detect_coms`` on CPU tensors equals the plain
+    version bit for bit, float32 and whole-mm uint16 frames, and counts no
+    launch."""
+    frames = torch.from_numpy(np.round(FRAME_SETS[name]())).to(dtype)
+    cubes = torch.full((frames.shape[0], 3), 300.0)
+    before = device_detect_batch.launches
+    got = torch.ops.lsps.detect_coms(frames, cubes, CAM.fx, CAM.fy, 65, 150,
+                                     5, FIRST_SLICE)
+    want = device_detect_batch_reference(frames, cubes, CAM.fx, CAM.fy)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(device_detect_batch(frames, cubes, CAM.fx, CAM.fy),
+                       want)
+    assert device_detect_batch.launches == before
+    if name == "hands":
+        assert bool((want[:, 2] > 0).all())
+    else:
+        assert not bool(want.any())
+
+
+def test_fake_gives_a_symbolic_batch():
+    """Under a fake tensor mode with a symbolic batch the op's fake gives
+    (B, 3) float32 CoMs and counts no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    frames = torch.zeros((2, 24, 32), dtype=torch.uint16)
+    cubes = torch.full((2, 3), 300.0)
+    before = device_detect_batch.launches
+    with FakeTensorMode(shape_env=ShapeEnv()) as mode:
+        fake = [mode.from_tensor(t, static_shapes=False)
+                for t in (frames, cubes)]
+        coms = device_detect_batch(*fake, CAM.fx, CAM.fy)
+        assert coms.dtype == torch.float32
+        assert not isinstance(coms.shape[0], int)
+        assert coms.shape[0] == fake[0].shape[0] and coms.shape[1] == 3
+    assert device_detect_batch.launches == before
+
+
+def test_symbolic_raw_export_holds_the_op():
+    """``serve/export.py``'s raw program with a symbolic batch holds the
+    op ``lsps.detect_coms`` as one node and no scatter-add, and computes
+    the live CoMs at batch 1 and 3."""
+    from lsps_tpu_torch.config import default_hyperparameters
+    from lsps_tpu_torch.data.camera import Camera as PortCamera
+    from lsps_tpu_torch.serve import export as E
+    from lsps_tpu_torch.serve.inference import PoseEstimator
+    from lsps_tpu_torch.train.trainer import fresh_state_dict
+
+    hyp = default_hyperparameters(reg_dim=108, small=True)
+    hyp["dis"]["ch"] = hyp["gen"]["ch"] = 4
+    sd = {k: v for k, v in fresh_state_dict(hyp, 0).items()
+          if k.split(".")[0] in ("dis", "vae")}
+    est = PoseEstimator(hyp, sd, camera=PortCamera.nyu(), device="cpu")
+    ep, _ = E.export_pose_program(est, batch=None, frame_shape=(480, 640),
+                                  raw=True, frame_dtype=torch.uint16)
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("lsps.detect_coms.default") == 1
+    assert not [t for t in targets if "scatter" in t or "bincount" in t]
+    frames = torch.from_numpy(np.round(_frames(3, seed=5))).to(torch.uint16)
+    cubes = torch.full((3, 3), 300.0)
+    for n in (1, 3):
+        _, coms = ep.module()(frames[:n], cubes[:n])
+        assert torch.equal(coms, device_detect_batch(frames[:n], cubes[:n],
+                                                     CAM.fx, CAM.fy))
 
 
 def _report(tag, seed):

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``lsps_tpu_torch`` and none
 of the root scripts that drive it on the card (``chip_smoke.py``,
-``warp_sweep.py``, ``detect_hist.py``) imports JAX or ``lsps_tpu``, nor
+``warp_sweep.py``) imports JAX or ``lsps_tpu``, nor
 any of ``cv2``, ``PIL``, ``matplotlib``, ``tensorboardX`` and ``orbax``,
 which the card's machine lacks (the PNG reader and the augment warps are
 numpy; the native augment library is the port's own build).  Checked in
@@ -9,7 +9,8 @@ wrappers (the two warp entries and the four norm kernels) to their
 contract: CPU tensors run the plain version, a launch counter exists and
 only kernel launches move it, other devices raise; and the crop warp is
 the registered op ``lsps::crop_normalize``, whose fake implementation
-gives the shapes for a symbolic batch.
+gives the shapes for a symbolic batch; detection's wrapper
+(``serve/detect.py``, the op ``lsps::detect_coms``) to the same contract.
 """
 
 import json
@@ -24,6 +25,7 @@ import torch
 
 from lsps_tpu_torch.ops.kernels import norm_act as N
 from lsps_tpu_torch.ops.kernels import warp as W
+from lsps_tpu_torch.serve import detect as D
 
 torch.set_num_threads(1)
 
@@ -37,7 +39,7 @@ names = [m.name for m in pkgutil.walk_packages(lsps_tpu_torch.__path__,
                                                 "lsps_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, detect_hist, warp_sweep
+import chip_smoke, warp_sweep
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "lsps_tpu"))
 absent = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -301,3 +303,52 @@ def test_crop_is_a_registered_op_with_a_fake():
         assert tuple(c.shape[1:]) == (12, 16) and tuple(m.shape[1:]) == (3, 3)
         assert c.shape[0] == fake[0].shape[0] == m.shape[0]
     assert W.crop_normalize.launches == before
+
+
+def _detect_inputs(device="cpu"):
+    rs = np.random.RandomState(3)
+    frames = torch.from_numpy(rs.randint(0, 1200, (2, 30, 40))
+                              .astype(np.uint16))
+    frames[:, 8:22, 10:30] = 700
+    cubes = torch.full((2, 3), 300.0)
+    return frames.to(device), cubes.to(device)
+
+
+def test_detect_cpu_tensors_take_the_plain_version():
+    frames, cubes = _detect_inputs()
+    before = D.device_detect_batch.launches
+    got = D.device_detect_batch(frames, cubes, 588.0, 587.0,
+                                interior_min=20)
+    want = D.device_detect_batch_reference(frames, cubes, 588.0, 587.0,
+                                           interior_min=20)
+    assert torch.equal(got, want) and bool(want[:, 2].gt(0).all())
+    assert isinstance(D.device_detect_batch.launches, int)
+    assert D.device_detect_batch.launches == before
+
+
+def test_detect_other_devices_raise():
+    with pytest.raises(ValueError, match="meta"):
+        D.device_detect_batch(*_detect_inputs("meta"), 588.0, 587.0)
+
+
+def test_detect_entries_match_the_wrapper_signatures():
+    """Each entry of detect.cu (the workspace size and the launch) takes
+    what its ctypes signature passes."""
+    from lsps_tpu_torch.ops.kernels import build
+
+    entries = _c_entries((build.CSRC / "detect.cu").read_text())
+    assert set(entries) == {"lsps_detect_workspace", "lsps_detect_coms"}
+    for name, argtypes in D._SIGNATURES.items():
+        assert entries[name] == [t.__name__ for t in argtypes], name
+
+
+def test_detect_kernel_source_is_built():
+    """The detection kernel is one of the package's sources, built for
+    sm_90a into the checkout's ``build/`` like the others, and no entry of
+    it is a fast-math intrinsic of a division."""
+    from lsps_tpu_torch.ops.kernels import SOURCES, build
+
+    assert "detect" in SOURCES
+    src = (build.CSRC / "detect.cu").read_text()
+    assert "__fdividef" not in src and "__frcp" not in src
+    assert build.library_path("detect").parent == ROOT / "build"
