@@ -172,6 +172,7 @@ def run(ctx) -> Outcome:
     ctx.synchronize()
     ctx.mark("first steps")
     setup_s = now() - ctx.t_start
+    ctx.open_window()
 
     # the window
     display = ctx.config["display"]
@@ -208,6 +209,7 @@ def run(ctx) -> Outcome:
     step_s = (t1 - t_free) / steps if steps else float("nan")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
+    ctx.close_window()
 
     del trainer, loaders, stream
     gc.collect()

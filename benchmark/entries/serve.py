@@ -8,7 +8,9 @@ frames in from host memory and brings its joints back to the host.
 
 * ``mode: stream`` is a camera: one frame at a time, due every 1 / fps
   seconds from the window's start (open loop: a late call delays the
-  frames after it, whose latency counts from their due times).
+  frames after it, whose latency counts from their due times).  The
+  stream's clock (``harness.clock.wait_until``) spins the caller up to
+  each due time, so that no oversleep of its own enters the latencies.
   ``frame_p95_ms`` is the 95th percentile over all frames of the window,
   each from its due time to its joints on the host.
 * ``mode: batches`` is an offline labelling job: batches of ``batch``
@@ -26,11 +28,11 @@ the cell detects); every answer of the window is compared with them.
 from __future__ import annotations
 
 import gc
-import time
 
 import numpy as np
 
 from harness import scenes, weights, yardstick
+from harness.clock import wait_until
 from harness.context import Outcome, now, tf32_off
 from harness.trace import profile_window
 from reference import nets
@@ -100,22 +102,26 @@ def run(ctx) -> Outcome:
     ctx.synchronize()
     ctx.mark("warm-up calls")
     setup_s = now() - ctx.t_start
+    ctx.open_window()
 
     answers, lat, late = [], [], []
+    overran = 0             # frames due while the call before ran on
     t0 = now()
     period = 1.0 / tr["fps"] if stream else 0.0
     sched = {"origin": t0, "base": 0}    # the stream's clock
 
     def run_units(count):
+        nonlocal overran
         for _ in range(count):
             i = len(answers)
             k = i % n_units
             if stream:
                 due = sched["origin"] + (i - sched["base"]) * period
-                wait = due - now()
-                if wait > 0:
+                if now() < due:
                     with ctx.span("wait"):
-                        time.sleep(wait)
+                        wait_until(due, now)
+                elif i > sched["base"]:    # the first is due at the origin
+                    overran += 1
                 late.append(max(0.0, now() - due))
             else:
                 due = now()
@@ -139,6 +145,7 @@ def run(ctx) -> Outcome:
     t_free, n_free = now(), len(answers)
     sched.update(origin=t_free, base=n_free)
     late.clear()
+    overran = 0
     if stream:
         run_units(max(1, int(ctx.seconds * tr["fps"])))
     else:
@@ -148,6 +155,8 @@ def run(ctx) -> Outcome:
     t1 = now()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
+    ctx.close_window()
+    copy_note = copy_in_note(torch, inputs, dev)
     del est
     gc.collect()
     if dev.type == "cuda":
@@ -160,11 +169,15 @@ def run(ctx) -> Outcome:
                                         answers, got_coms, detect)
     n_frames = len(answers) * b
     free_lat = lat[n_free:]
+    notes.append(latency_note(free_lat, "frame" if stream else "call"))
+    if copy_note:
+        notes.append(copy_note)
     if stream:
         e2e = {"frame_p95_ms": yardstick.percentile(free_lat, 95) * 1e3}
         notes.append(f"generator: {len(late)} frames, late by at most "
-                     f"{max(late) * 1e3:.3f} ms, median "
-                     f"{float(np.median(late)) * 1e3:.3f} ms")
+                     f"{max(late) * 1e3:.4f} ms, median "
+                     f"{float(np.median(late)) * 1e3:.4f} ms; {overran} "
+                     f"due while the call before still ran")
         unit_s = yardstick.percentile(free_lat, 50)
     else:
         e2e = {"frames_per_s": n_frames / (t1 - t0)}
@@ -179,6 +192,35 @@ def run(ctx) -> Outcome:
             crop_bound_s=crop_bound(torch, cam, hw, answers[:n_prof],
                                     got_coms[:n_prof], coms, cubes))
     return out
+
+
+def latency_note(lat, unit) -> str:
+    q = [yardstick.percentile(lat, p) * 1e3 for p in (50, 95, 100)]
+    return (f"{unit} latency over the free window: {len(lat)} {unit}s, p50 "
+            f"{q[0]:.4f} ms, p95 {q[1]:.4f} ms, max {q[2]:.4f} ms")
+
+
+def copy_in_note(torch, inputs, dev):
+    """The pinned pool's copy to the card, timed by CUDA events after the
+    window: the host link as this run's buffers found it; None for frames
+    in pageable memory."""
+    if dev.type != "cuda" or not torch.is_tensor(inputs):
+        return None
+    buf = torch.empty_like(inputs[0], device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        for unit in inputs:
+            buf.copy_(unit, non_blocking=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    gb = reps * inputs.numel() * inputs.element_size() / 1e9
+    del buf
+    return (f"copy in after the window: {reps} x {inputs.shape[0]} pinned "
+            f"units, {gb / ms * 1e3:.2f} GB/s ({ms / reps / inputs.shape[0]:.4f}"
+            f" ms a unit)")
 
 
 def crop_bound(torch, cam, hw, answers, got_coms, coms, cubes) -> float:

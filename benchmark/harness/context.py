@@ -6,6 +6,9 @@ returns an ``Outcome``: the end-to-end metrics, the set-up seconds, the
 requests or steps attempted and failed, the peak device memory, the
 numbers its correctness check compared with their limits, and for a
 traced run the host spans, facts and trace the per-layer readers take.
+An entry calls ``open_window`` once set-up has ended and ``close_window``
+once its window has closed, outside both: they read the host and the card
+for the run's notes.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-from harness import weights
+from harness import host, weights
 from harness.manifest import Manifest
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lsps_tpu")
@@ -42,6 +45,8 @@ class Context:
     variant: Optional[str] = None   # tests: "control" or a planted fault
     trace_dir: Path = Path("build/bench_trace")
     marks: List[Tuple[str, float]] = field(default_factory=list)
+    host_notes: List[str] = field(default_factory=list)
+    _opened: dict = field(default_factory=dict)
 
     def mark(self, phase: str) -> None:
         """The end of a phase of set-up, in seconds since process start."""
@@ -94,6 +99,26 @@ class Context:
     def synchronize(self):
         if self.device.type == "cuda":
             self.torch.cuda.synchronize(self.device)
+
+    def open_window(self) -> None:
+        """Read the card's NUMA node and state and the main thread's CPU
+        and switches, just before the window opens."""
+        if self.device.type == "cuda":
+            self.host_notes.append(host.card_numa(
+                host.pci_bus_id(self.torch, self.device)))
+        self.host_notes.append(f"card before the window: {self._card()}")
+        self._opened = host.thread_state()
+
+    def close_window(self) -> None:
+        """The same readings just after the window has closed."""
+        self.host_notes.append(f"card after the window: {self._card()}")
+        self.host_notes.append(host.window_note(self._opened,
+                                                host.thread_state()))
+
+    def _card(self) -> str:
+        if self.device.type != "cuda":
+            return "none (a CPU rehearsal)"
+        return host.card_state(self.device.index or 0)
 
 
 @dataclass

@@ -9,6 +9,13 @@ card's machine has returned empty traces and traces missing launches),
 is taken again on the next units, up to ``tries`` times; after that the
 run fails rather than read its per-layer metrics from a partial trace.
 
+The profiler on the card's machine drops the first device records of a
+trace, more of them as the process ages (none at 12 s, up to 8 launches
+after two minutes).  So each trace opens with ``LEAD_IN`` spin kernels,
+synchronized before the window's range opens; ``Trace`` leaves them out
+of every interval, count and reader, and counts the window's launches
+that still lack a device record (``unrecorded``).
+
 ``Trace`` holds the window's device intervals (kernels, copies, sets),
 the host ranges the harness opened (``bench.*``), the main thread's
 top-level operators and each kernel's launch time on the host, which
@@ -25,6 +32,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "bench.window"
+LEAD_IN = 64
+LEAD_IN_KERNEL = "spin_kernel"       # torch.cuda._sleep's kernel
+# host calls that put work on the device, each owed a device record
+LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 
 
 class Trace:
@@ -41,12 +52,16 @@ class Trace:
         self.ranges: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
         self.ops: List[Tuple[str, float, float]] = []
         self.launch_ts: Dict[int, float] = {}
+        launched, recorded = [], set()
         for e in events:
             if e.get("ph") != "X":
                 continue
             cat, ts = e.get("cat"), float(e.get("ts", 0.0))
             end = ts + float(e.get("dur", 0.0))
             if cat in DEVICE_CATS:
+                if LEAD_IN_KERNEL in e["name"]:
+                    continue
+                recorded.add(e.get("args", {}).get("correlation"))
                 if end > self.t0 and ts < self.t1:
                     self.device.append((cat, e["name"], max(ts, self.t0),
                                         min(end, self.t1),
@@ -59,7 +74,12 @@ class Trace:
                 corr = e.get("args", {}).get("correlation")
                 if corr is not None:
                     self.launch_ts[corr] = ts
+                    if self.t0 <= ts <= self.t1 and any(
+                            w in e["name"] for w in LAUNCH_WORDS):
+                        launched.append(corr)
         self.device.sort(key=lambda d: d[2])
+        self.launches = len(launched)
+        self.unrecorded = sum(c not in recorded for c in launched)
 
     @classmethod
     def load(cls, path: Path) -> "Trace":
@@ -152,6 +172,9 @@ def profile_window(torch, run_units: Callable[[int], None], units: int,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
             with record_function(WINDOW):
                 run_units(units)
                 torch.cuda.synchronize()

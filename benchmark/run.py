@@ -98,6 +98,7 @@ def main(argv=None) -> int:
     out = run_cell(ctx)
 
     from harness.context import forbidden_modules, power_limit, result_line
+    from harness.trace import LEAD_IN
 
     bad = forbidden_modules()
     if bad:
@@ -110,7 +111,11 @@ def main(argv=None) -> int:
         line["rehearsal"] = True
     else:
         print(f"card: {power_limit()}", file=sys.stderr)
-    for note in out.notes:
+    if out.trace is not None:
+        print(f"trace: {out.trace.launches} launches in the profiled "
+              f"window, {out.trace.unrecorded} without a device record "
+              f"(its lead-in of {LEAD_IN} kernels left out)", file=sys.stderr)
+    for note in ctx.host_notes + out.notes:
         print(note, file=sys.stderr)
     for name, value, limit in out.checks:
         print(f"check {name} {value!r} limit {limit!r}", file=sys.stderr)

@@ -20,8 +20,8 @@ import pytest
 
 from bench_runs import readings, run_cell
 
-CELLS = {"nnyu.pretrain-b32": 2.0, "nnyu.track-raw-b1": 5.0,
-         "nicvl.label-b256": 3.0, "nnyu.label-raw-b256": 3.0}
+CELLS = {"nnyu.pretrain-b32": 2.0, "nicvl.label-b256": 3.0,
+         "nnyu.label-raw-b256": 3.0}
 PROGRAM_SEEDS = [2 ** 31 + 1000 + 7 * i for i in range(12)]
 CONTROL_SEEDS = [2 ** 31 + 5000 + 7 * i for i in range(3)]
 

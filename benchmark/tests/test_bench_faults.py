@@ -10,7 +10,6 @@ SEED = 2 ** 31 + 101
 FAULTS = [("nnyu.pretrain-b32", "augment"),
           ("nnyu.pretrain-b32", "unchanged"),
           ("nnyu.pretrain-b32", "half_batch"),
-          ("nnyu.track-raw-b1", "answer"),
           ("nicvl.label-b256", "answer"),
           ("nnyu.label-raw-b256", "answer")]
 

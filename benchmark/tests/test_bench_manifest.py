@@ -109,9 +109,10 @@ def test_a_new_cell_config_and_metric_need_only_new_files(tmp_path):
     data["workloads"].append({"name": "nnyu_copy.track-60",
                               "config": "nnyu_copy", "traffic": "track-60",
                               "chips": 1, "why": "60 fps"})
-    for m in data["end_to_end"]:
-        if m["name"] == "frame_p95_ms":
-            m["workloads"].append("nnyu_copy.track-60")
+    data["end_to_end"].append({"name": "frame_p95_ms", "unit": "ms",
+                               "better": "lower", "bound": 0.25,
+                               "source": "host_clock",
+                               "workloads": ["nnyu_copy.track-60"]})
     (bench / "metrics" / "late_ms.track.py").write_text(
         "def read(out):\n    return 1.5\n")
     data["per_layer"].append({"name": "late_ms.track", "unit": "ms",
